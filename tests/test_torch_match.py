@@ -1,0 +1,150 @@
+"""vislam_tpu_torch against vislam_tpu: kernel 2's plain twin (distances +
+row top-2 + column argmin) and match_descriptors, ungated and gated, at the
+engine's shapes (K = 768 and 512, D = 128).
+
+Kernel 2 itself runs only on a CUDA card; chip_smoke.py holds it against
+this plain twin there. Tolerances follow tests/test_ops.py: distances at
+rtol 1e-4 (float32 dot products summed in another order), indices and
+masks exact away from near-ties (rows whose best and second-best distance
+differ by less than 1e-5 relative could legitimately swap).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vislam_tpu.frontend.match import match_descriptors as j_match
+from vislam_tpu.ops.match_kernel import match_top2_pallas
+from vislam_tpu_torch.frontend.match import match_descriptors as t_match
+from vislam_tpu_torch.ops import build
+from vislam_tpu_torch.ops.harris_kernel import shi_tomasi_nms
+from vislam_tpu_torch.ops.match_kernel import match_top2, match_top2_plain
+
+torch.set_num_threads(2)
+GATE = 60.0
+
+
+def _pair(K, N=None, seed=0):
+    """Descriptor sets with true correspondences (B is a noisy permutation
+    of A), invalid rows in both, and keypoint positions for the gate."""
+    N = K if N is None else N
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(K, 128)).astype(np.float32)
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    perm = rng.permutation(K)[:N] if N <= K else rng.integers(0, K, N)
+    b = a[perm] + 0.25 * rng.normal(size=(N, 128)).astype(np.float32) / np.sqrt(128)
+    b = (b / np.linalg.norm(b, axis=-1, keepdims=True)).astype(np.float32)
+    ma = rng.uniform(size=K) > 0.1
+    mb = rng.uniform(size=N) > 0.1
+    uv_a = rng.uniform([0, 0], [752, 480], (K, 2)).astype(np.float32)
+    uv_b = (uv_a[perm] + rng.normal(scale=30.0, size=(N, 2))).astype(np.float32)
+    return a, b, ma, mb, uv_a, uv_b
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _untied(min1, min2):
+    return np.abs(min2 - min1) > 1e-5 * np.maximum(min1, 1e-6)
+
+
+@pytest.mark.parametrize("K", [768, 512])
+@pytest.mark.parametrize("gated", [False, True])
+def test_top2_twin_matches_pallas_interpret(K, gated):
+    a, b, ma, mb, uv_a, uv_b = _pair(K, seed=K + gated)
+    gate = dict(uv_pred=uv_a, uv_b=uv_b, gate_radius=GATE) if gated else {}
+    p = match_top2_pallas(jnp.asarray(a), jnp.asarray(ma), jnp.asarray(b), jnp.asarray(mb),
+                          interpret=True,
+                          **{k: (jnp.asarray(v) if k != "gate_radius" else v)
+                             for k, v in gate.items()})
+    t = match_top2(_t(a), _t(ma), _t(b), _t(mb),
+                   **{k: (_t(v) if k != "gate_radius" else v) for k, v in gate.items()})
+    p_min1, p_min2, p_arg1, p_col = (np.asarray(x) for x in p)
+    t_min1, t_min2, t_arg1, t_col = (x.numpy() for x in t)
+    assert t_arg1.dtype == np.int32 and t_col.dtype == np.int32
+    np.testing.assert_allclose(t_min1, p_min1, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(t_min2, p_min2, rtol=1e-4, atol=1e-5)
+    # Rows with no valid candidate (1e9 everywhere) tie trivially; both
+    # sides then report column 0.
+    has = p_min1 < 5e8
+    ok = has & _untied(p_min1, p_min2)
+    assert ok.sum() > 0.99 * has.sum()
+    np.testing.assert_array_equal(t_arg1[ok], p_arg1[ok])
+    np.testing.assert_array_equal(t_arg1[~has], 0)
+    # Column argmin, away from near-tied columns.
+    np.testing.assert_array_equal(t_col[mb], p_col[mb])
+
+
+def test_top2_twin_rectangular_matches_numpy():
+    """K != N (the kernel and twin take any N): numpy oracle."""
+    a, b, ma, mb, uv_a, uv_b = _pair(300, N=200, seed=5)
+    D = np.maximum((a * a).sum(1)[:, None] + (b * b).sum(1)[None] - 2 * a @ b.T, 0)
+    D[~ma] = 1e9
+    D[:, ~mb] = 1e9
+    min1, min2, arg1, col = (x.numpy() for x in match_top2_plain(_t(a), _t(ma), _t(b), _t(mb)))
+    np.testing.assert_allclose(min1, D.min(1), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(arg1[ma], D.argmin(1)[ma])
+    D2 = D.copy()
+    D2[np.arange(300), D.argmin(1)] = 1e9
+    np.testing.assert_allclose(min2[ma], D2.min(1)[ma], rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(col[mb], D.argmin(0)[mb])
+
+
+def test_top2_tie_semantics():
+    """First index wins; a tie at the minimum makes min2 == min1; rows with
+    no valid pair give min1 = min2 = 1e9 and arg1 = 0."""
+    a = np.zeros((3, 128), np.float32)
+    a[:, 0] = 1.0
+    b = np.zeros((4, 128), np.float32)
+    b[[1, 3], 0] = 1.0
+    b[[0, 2], 1] = 1.0
+    ma = np.array([True, True, False])
+    mb = np.ones(4, bool)
+    min1, min2, arg1, col = (x.numpy() for x in match_top2_plain(_t(a), _t(ma), _t(b), _t(mb)))
+    np.testing.assert_array_equal(arg1, [1, 1, 0])
+    np.testing.assert_array_equal(min1[:2], [0.0, 0.0])
+    np.testing.assert_array_equal(min2[:2], [0.0, 0.0])
+    assert min1[2] == min2[2] == np.float32(1e9)
+    np.testing.assert_array_equal(col, [0, 0, 0, 0])
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_match_descriptors_matches_reference(gated):
+    a, b, ma, mb, uv_a, uv_b = _pair(768, seed=11 + gated)
+    gj = dict(uv_pred=jnp.asarray(uv_a), uv_b=jnp.asarray(uv_b), gate_radius=GATE) \
+        if gated else {}
+    gt = dict(uv_pred=_t(uv_a), uv_b=_t(uv_b), gate_radius=GATE) if gated else {}
+    j = j_match(jnp.asarray(a), jnp.asarray(ma), jnp.asarray(b), jnp.asarray(mb),
+                ratio=0.8, mutual=True, **gj)
+    t = t_match(_t(a), _t(ma), _t(b), _t(mb), ratio=0.8, mutual=True, **gt)
+    jm = np.asarray(j.mask)
+    assert jm.sum() > 200
+    np.testing.assert_array_equal(t.mask.numpy(), jm)
+    np.testing.assert_array_equal(t.idx_b.numpy()[jm], np.asarray(j.idx_b)[jm])
+    np.testing.assert_allclose(t.dist.numpy()[jm], np.asarray(j.dist)[jm], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_wrappers_run_the_plain_version_only_for_cpu_tensors():
+    """The plain versions run because the tensor lies on the CPU, not as a
+    fallback: a tensor on any other non-CUDA device raises."""
+    img = torch.zeros((32, 32), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        shi_tomasi_nms(img)
+    d = torch.zeros((8, 128), device="meta")
+    m = torch.ones(8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        match_top2(d, m, d, m)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No compiler: the build raises (naming nvcc) and leaves nothing behind."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "_BUILD", str(tmp_path / "_build"))
+    for name in ("shi_tomasi_nms", "match_top2"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            build.library_path(name)
+    assert not (tmp_path / "_build").exists()

@@ -1,0 +1,525 @@
+"""The VIO engine: the per-frame step (port of `vislam_tpu/engine/engine.py`,
+default configuration, GT-scale mode).
+
+One frame: Madgwick attitude + IMU preintegration, feature extraction,
+descriptor match against the keyframe, IMU-rotation-compensated translation
+RANSAC and its sign, the guided rescue re-match, disparity, gyro/accel bias
+recalibration, the shadow depth chain, pose composition, the keyframe
+policy and the window promotion.
+
+No host sync inside a frame: every `lax.cond` of the reference on a device
+value (the rescue, the promotion) computes both branches and selects with
+`torch.where`, and no value on the device steers Python control flow. So
+the rescue's gated re-match and RANSAC run on every frame.
+
+Configurations this port does not cover yet raise NotImplementedError at
+construction (see `_check_supported`); a GT-free (IMU-scale) step raises at
+the call.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from vislam_tpu_torch import lie
+from vislam_tpu_torch.backend.triangulate import triangulate_midpoint
+from vislam_tpu_torch.calib.camera_model import CameraCalib, unproject_pixels
+from vislam_tpu_torch.engine.state import EngineState, init_state
+from vislam_tpu_torch.frontend.descriptor import DescriptorGeometry
+from vislam_tpu_torch.frontend.features import Features, extract_features
+from vislam_tpu_torch.frontend.match import match_descriptors
+from vislam_tpu_torch.frontend.pose import (
+    gumbel_noise,
+    ransac_translation,
+    resolve_direction_sign,
+    rotation_compensated_disparity,
+)
+from vislam_tpu_torch.inertial.filters import madgwick_scan
+from vislam_tpu_torch.inertial.preintegration import (
+    Preintegrated,
+    bias_correct,
+    compose,
+    preintegrate,
+)
+from vislam_tpu_torch.utils.config import SystemConfig
+
+class FrameResult(NamedTuple):
+    """Per-frame outputs (field for field the reference's)."""
+
+    p_wc: torch.Tensor         # (3,) camera position estimate
+    R_wc: torch.Tensor         # (3, 3)
+    q_wb: torch.Tensor         # (4,) body orientation from the filter
+    v_w: torch.Tensor          # (3,)
+    is_keyframe: torch.Tensor  # () bool
+    num_matches: torch.Tensor  # () int32
+    num_inliers: torch.Tensor  # () int32
+    disparity: torch.Tensor    # () float32
+    t_dir_cam: torch.Tensor    # (3,) translation direction (new-cam frame)
+    used_fallback: torch.Tensor  # () bool, the rescue re-match was taken
+    t_pred_cam: torch.Tensor   # (3,) IMU-predicted keyframe->frame translation
+
+
+def nanmedian(x):
+    """Median of the non-NaN entries of a 1-D tensor, NaN if there are none.
+
+    Averages the middle pair on an even count, as jnp.nanmedian does
+    (torch.nanmedian takes the lower one), by sort and count: no host sync.
+    """
+    n = torch.sum(~torch.isnan(x)).float()
+    s = torch.sort(x).values  # NaN sorts last
+    q = 0.5 * (n - 1.0)
+    low = torch.floor(q)
+    high = torch.ceil(q)
+    hw = q - low
+    lw = 1.0 - hw
+    low = torch.clamp(torch.minimum(low, n - 1.0), min=0.0).long().reshape(1)
+    high = torch.clamp(torch.minimum(high, n - 1.0), min=0.0).long().reshape(1)
+    return s.index_select(0, low)[0] * lw + s.index_select(0, high)[0] * hw
+
+
+def frame_generator(seed: int, idx: int, device) -> torch.Generator:
+    """The RANSAC generator of frame `idx`: a function of (seed, idx) only,
+    so a loop of `step` and `run_sequence_scan` draw the same hypotheses
+    (the role of the reference's fold_in(PRNGKey(seed), idx))."""
+    state = np.random.SeedSequence([seed, idx]).generate_state(1, np.uint64)[0]
+    g = torch.Generator(device=device)
+    g.manual_seed(int(state >> np.uint64(1)))
+    return g
+
+
+def _check_supported(cfg: SystemConfig, device: torch.device) -> None:
+    fe, be, en = cfg.frontend, cfg.backend, cfg.engine
+    unsupported = [
+        (en.vision_rotation, "engine.vision_rotation",
+         "queue 1, frontend variants (essential-matrix rotation)"),
+        (en.photometric_refine, "engine.photometric_refine",
+         "queue 1, frontend variants (photometric refine)"),
+        (be.refine_in_step, "backend.refine_in_step", "queue 1, slice 2 (SLAM mode)"),
+        (be.vi_factors, "backend.vi_factors", "queue 1, slice 2 (SLAM mode)"),
+        (fe.scale_space != "gaussian", f"frontend.scale_space={fe.scale_space!r}",
+         "queue 1, frontend variants + queue 2 kernel 3 (FED)"),
+        (fe.detector != "shi_tomasi", f"frontend.detector={fe.detector!r}",
+         "queue 2, kernel 1's other detector families"),
+        (fe.descriptor != "sift", f"frontend.descriptor={fe.descriptor!r}",
+         "queue 1, frontend variants (BRIEF)"),
+        (fe.oriented, "frontend.oriented", "queue 1, frontend variants (oriented SIFT)"),
+        (fe.guided_gate_px > 0, "frontend.guided_gate_px",
+         "queue 1, frontend variants (always-on guided matching)"),
+        (fe.nms_radius != 2 and device.type == "cuda", "frontend.nms_radius != 2 on CUDA",
+         "queue 2, kernel 1 (the kernel implements 5x5 NMS)"),
+    ]
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+class VIOEngine:
+    """Host wrapper owning the static config, the device and the constants
+    the step needs on it. `device` is explicit: nothing is auto-detected and
+    no path falls back to another device."""
+
+    def __init__(self, calib: CameraCalib, cfg: SystemConfig = SystemConfig(),
+                 seed: int = 0, *, device):
+        self.device = torch.device(device)
+        _check_supported(cfg, self.device)
+        self.calib = calib
+        self.cfg = cfg
+        self.seed = seed
+        # Mirrors state.frame_idx (the reference's per-step key counter).
+        self._step_counter = 0
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.R_bc = torch.as_tensor(np.asarray(calib.T_body_cam[:3, :3], np.float32),
+                                    device=self.device)
+        self.g_w = torch.tensor([0.0, 0.0, -cfg.engine.gravity], **f32)
+        self.geom = DescriptorGeometry(self.device)
+
+    def _to_device(self, x):
+        return torch.as_tensor(x).to(self.device, torch.float32)
+
+    def initialize(self, image0, q_wb0=None, v_w0=None, p_w0=None) -> EngineState:
+        """The first frame becomes the first keyframe."""
+        img = self._to_device(image0)
+        feat0 = extract_features(img, self.cfg.frontend, self.geom)
+        q0 = self._to_device([1.0, 0.0, 0.0, 0.0] if q_wb0 is None else q_wb0)
+        v0 = self._to_device(np.zeros(3) if v_w0 is None else v_w0)
+        p0 = self._to_device(np.zeros(3) if p_w0 is None else p_w0)
+        R_wc0 = lie.quat_to_mat(q0) @ self.R_bc
+        return init_state(feat0, img, q0, v0, p0, R_wc0,
+                          window_size=self.cfg.backend.window_size,
+                          desc_dtype=getattr(torch, self.cfg.backend.window_desc_dtype))
+
+    def set_step_counter(self, n: int) -> None:
+        """Restore the per-step draw counter (= state.frame_idx) on resume."""
+        self._step_counter = int(n)
+
+    def step(self, state: EngineState, image, imu, imu_dt, gt_t_norm: float = -1.0,
+             noise=None, noise_rescue=None):
+        """Process one frame with GT scale (gt_t_norm >= 0, a host float).
+
+        noise / noise_rescue: optional (2, H, M) Gumbel noise for the main
+        and the rescue RANSAC draws; drawn from this frame's generator
+        (`frame_generator(seed, frame index)`) when not given.
+        """
+        gt_t_norm = float(gt_t_norm)
+        if gt_t_norm < 0:
+            raise NotImplementedError(
+                "GT-free (IMU-scale) steps are not ported yet "
+                "(ROADMAP.md queue 1, GT-free supervision)")
+        gen = frame_generator(self.seed, self._step_counter, self.device)
+        self._step_counter += 1
+        return self._step(state, self._to_device(image), self._to_device(imu),
+                          self._to_device(imu_dt), gt_t_norm, gen, noise, noise_rescue)
+
+    def _step(self, state: EngineState, image, imu, imu_dt, gt_t_norm,
+              gen: torch.Generator, noise=None, noise_rescue=None):
+        """The step body. gt_t_norm: a float or a () device tensor, >= 0."""
+        cfg = self.cfg
+        fe, be, en = cfg.frontend, cfg.backend, cfg.engine
+        calib = self.calib
+        fx, fy, cx, cy = calib.fx, calib.fy, calib.cx, calib.cy
+        R_bc, g_w = self.R_bc, self.g_w
+        kf_rot_thresh = float(np.cos(np.deg2rad(en.kf_rotation_deg)))
+        kf = state.kf_feat
+
+        # ---------------- inertial: orientation + preintegration
+        gyro = imu[:, :3] - state.bias_g
+        accel = imu[:, 3:] - state.bias_a
+        q_wb, _ = madgwick_scan(state.q_wb, gyro, accel, imu_dt,
+                                beta=0.02, gravity=en.gravity)
+        pre = preintegrate(imu[:, :3], imu[:, 3:], imu_dt,
+                           bias_gyro=state.bias_g, bias_accel=state.bias_a)
+
+        # Relative camera rotation since the last keyframe.
+        R_wb_j = lie.quat_to_mat(q_wb)
+        R_wc_j_imu = R_wb_j @ R_bc
+        R_ji_imu = R_wc_j_imu.T @ state.kf_R_wc
+
+        # ---------------- frontend
+        feat = extract_features(image, fe, self.geom)
+        Kb = feat.uv.shape[0]
+        m = match_descriptors(kf.desc, kf.mask, feat.desc, feat.mask,
+                              ratio=fe.ratio_thresh, mutual=fe.mutual_check)
+        fine_only = fe.solver_fine_only and fe.levels_used > 1
+        uv_i = kf.uv
+        uv_j = feat.uv[torch.clamp(m.idx_b, 0, Kb - 1).long()]
+        num_matches = torch.sum(m.mask).to(torch.int32)
+        solve_mask = m.mask & (kf.level == 0) if fine_only else m.mask
+
+        def unit_rays(uv):
+            r = unproject_pixels(uv, fx, fy, cx, cy)
+            return r / torch.linalg.vector_norm(r, dim=-1, keepdim=True)
+
+        rays_i = unit_rays(uv_i)
+        rays_j = unit_rays(uv_j)
+
+        # IMU displacement since the keyframe (empty IMU window: the frame
+        # period stands in for the integration time).
+        T = torch.where(pre.dt > 1e-6, pre.dt,
+                        torch.full_like(pre.dt, 1.0 / max(calib.rate_cam_hz, 1.0)))
+        R_wb_prev = lie.quat_to_mat(state.q_wb)
+        dp_step = state.v_w * T + 0.5 * g_w * T * T + R_wb_prev @ pre.dp
+        dp_since_kf = state.kf_dp_imu + dp_step
+        imu_t_norm = torch.linalg.vector_norm(dp_since_kf)
+        t_pred_cam = -(R_wc_j_imu.T @ dp_since_kf)
+        t_pred_dir = t_pred_cam / torch.clamp(imu_t_norm, min=1e-9)
+
+        # ---------------- two-view relative pose
+        H_hyp, M = be.ransac_hyps, uv_i.shape[0]
+        if noise is None:
+            noise = gumbel_noise(gen, H_hyp, M, self.device)
+        if noise_rescue is None:
+            noise_rescue = gumbel_noise(gen, H_hyp, M, self.device)
+        R_ji = R_ji_imu
+        est = ransac_translation(rays_i, rays_j, R_ji, solve_mask, num_hyps=H_hyp,
+                                 thresh=be.ransac_thresh, uv_i=uv_i,
+                                 dispersion_pow=be.ransac_dispersion_pow, noise=noise)
+        t_dir = resolve_direction_sign(rays_i, rays_j, R_ji, est.t_dir, est.inlier_mask)
+        est_inliers = est.num_inliers
+        est_inlier_mask = est.inlier_mask
+        used_fallback = torch.zeros((), dtype=torch.bool, device=self.device)
+
+        if fe.guided_fallback_px > 0:
+            # Rescue: re-match inside the IMU-rotation-predicted disc and
+            # re-solve; taken when the ungated solve is catastrophic (inlier
+            # floor, or a direction far from the IMU's while the IMU says
+            # the camera moved) AND the gated solve wins decisively. Both
+            # branches run; the choice is a select. GT-scale steps only, so
+            # the direction-improvement acceptance channel is always open.
+            cos_est = torch.dot(t_dir, t_pred_dir)
+            dir_trig = (imu_t_norm > fe.fallback_dir_min_norm) & (cos_est < fe.fallback_dir_cos)
+            triggered = ((est_inliers < fe.fallback_trigger_inliers) | dir_trig) \
+                & (torch.sum(feat.mask) > 0)
+
+            x = (uv_i[:, 0] - cx) / fx
+            y = (uv_i[:, 1] - cy) / fy
+            w = torch.stack([x, y, torch.ones_like(x)], -1) @ R_ji_imu.T
+            wz = torch.where(w[:, 2].abs() > 1e-6, w[:, 2], torch.full_like(w[:, 2], 1e-6))
+            uv_pred = torch.stack([w[:, 0] / wz * fx + cx, w[:, 1] / wz * fy + cy], -1)
+            m_g = match_descriptors(kf.desc, kf.mask, feat.desc, feat.mask,
+                                    ratio=fe.ratio_thresh, mutual=fe.mutual_check,
+                                    uv_pred=uv_pred, uv_b=feat.uv,
+                                    gate_radius=fe.guided_fallback_px)
+            uv_j_g = feat.uv[torch.clamp(m_g.idx_b, 0, Kb - 1).long()]
+            rj_g = unit_rays(uv_j_g)
+            g_solve_mask = m_g.mask & (kf.level == 0) if fine_only else m_g.mask
+            est_g = ransac_translation(rays_i, rj_g, R_ji_imu, g_solve_mask,
+                                       num_hyps=H_hyp, thresh=be.ransac_thresh, uv_i=uv_i,
+                                       dispersion_pow=be.ransac_dispersion_pow,
+                                       noise=noise_rescue)
+            t_g = resolve_direction_sign(rays_i, rj_g, R_ji_imu, est_g.t_dir,
+                                         est_g.inlier_mask)
+            cos_g = torch.dot(t_g, t_pred_dir)
+            better = (est_g.num_inliers > fe.fallback_win_margin * est_inliers) | (
+                dir_trig & (cos_g > cos_est + 0.15)
+                & (est_g.num_inliers >= torch.clamp((0.7 * est_inliers).to(torch.int32), min=8)))
+            take = triggered & better
+
+            def sel(a, b):
+                return torch.where(take, a, b)
+
+            m = m._replace(idx_b=sel(m_g.idx_b, m.idx_b), mask=sel(m_g.mask, m.mask))
+            uv_j = sel(uv_j_g, uv_j)
+            rays_j = sel(rj_g, rays_j)
+            t_dir = sel(t_g, t_dir)
+            est_inliers = sel(est_g.num_inliers, est_inliers)
+            est_inlier_mask = sel(est_g.inlier_mask, est_inlier_mask)
+            used_fallback = take
+            num_matches = torch.sum(m.mask).to(torch.int32)
+
+        disparity = rotation_compensated_disparity(uv_i, uv_j, m.mask, R_ji, fx, fy, cx, cy)
+
+        # Compose this frame's preintegration onto the keyframe->current factor.
+        acc = Preintegrated(
+            dR=state.kf_pre_dR, dv=state.kf_pre_dv, dp=state.kf_pre_dp,
+            dt=state.kf_time, J_dR_bg=state.kf_pre_J_R_bg, J_dv_bg=state.kf_pre_J_v_bg,
+            J_dv_ba=state.kf_pre_J_v_ba, J_dp_bg=state.kf_pre_J_p_bg,
+            J_dp_ba=state.kf_pre_J_p_ba,
+        )
+        pre_acc = compose(acc, pre, dt_b=T)
+        pre_acc = pre_acc._replace(dR=lie.orthonormalize(pre_acc.dR))
+
+        # Gyro + accel bias recalibration on quasi-static frames.
+        bias_g_new = state.bias_g
+        bias_a_new = state.bias_a
+        if en.gyro_recalib:
+            w_raw = imu[:, :3]
+            a_raw = imu[:, 3:]
+            validw = (imu_dt > 0).float()[:, None]
+            n = torch.sum(validw)
+            nf = torch.clamp(n, min=1.0)
+            w_mean = torch.sum(w_raw * validw, 0) / nf
+            w_std = torch.sqrt(torch.clamp(
+                torch.sum((w_raw - w_mean) ** 2 * validw, 0) / nf, min=0.0))
+            a_mean = torch.sum(a_raw * validw, 0) / nf
+            a_std = torch.sqrt(torch.clamp(
+                torch.sum((a_raw - a_mean) ** 2 * validw, 0) / nf, min=0.0))
+            a_dev = torch.abs(torch.linalg.vector_norm(a_mean) - en.gravity)
+            still = ((n >= 4.0) & (torch.max(w_std) < en.recalib_gyro_std)
+                     & (torch.max(a_std) < en.recalib_accel_std)
+                     & (a_dev < en.recalib_accel_dev)
+                     & (torch.linalg.vector_norm(w_mean - state.bias_g) < 0.05))
+            zero3 = torch.zeros_like(state.bias_g)
+            dbg = torch.where(still, en.recalib_alpha * (w_mean - state.bias_g), zero3)
+            bias_g_new = state.bias_g + dbg
+            dba = zero3
+            if en.accel_recalib:
+                f_exp = R_wb_j.T @ (-g_w)   # (0,0,+g) in body coords
+                ba_target = a_mean - f_exp
+                ba_ok = still & (torch.linalg.vector_norm(ba_target - state.bias_a) < 0.5)
+                dba = torch.where(ba_ok, en.recalib_accel_alpha * (ba_target - state.bias_a),
+                                  zero3)
+                bias_a_new = state.bias_a + dba
+            pre_acc = bias_correct(pre_acc, dbg, dba)
+
+        # Shadow depth chain: the step length chained through the keyframe's
+        # triangulated depths (the GT-free bootstrap's consistently scaled
+        # shadow trajectory; maintained in GT-scale mode as well).
+        chain = en.vi_align_bootstrap
+        s_shadow = imu_t_norm
+        if chain:
+            _, d_i_u, d_j_u, gap_u = triangulate_midpoint(rays_i, rays_j, R_ji, t_dir)
+            chain_pair_ok = (m.mask & est_inlier_mask & (d_i_u > 1e-3) & (d_j_u > 1e-3)
+                             & (gap_u < 0.08 * d_i_u)
+                             & torch.isfinite(d_i_u) & torch.isfinite(d_j_u))
+            ok_ratio = chain_pair_ok & state.kf_depth_valid
+            ratio = state.kf_depths / torch.clamp(d_i_u, min=1e-6)
+            s_med = nanmedian(torch.where(ok_ratio, ratio, torch.full_like(ratio, math.nan)))
+            s_chain_ok = ((torch.sum(ok_ratio) >= 12) & torch.isfinite(s_med)
+                          & (s_med > 1e-4) & (s_med < 1e4))
+            s_unseeded = torch.clamp(imu_t_norm, 0.005, 0.5)
+            s_fallback = torch.where(state.shadow_scale > 0.0, state.shadow_scale, s_unseeded)
+            s_shadow = torch.where(s_chain_ok, s_med, s_fallback)
+        t_ji = t_dir * gt_t_norm  # GT scale; frame-j coords: X_j = R_ji X_i + t_ji
+
+        # ---------------- relative pose -> world pose
+        R_cw_i = state.kf_R_wc.T
+        t_cw_i = -state.kf_R_wc.T @ state.kf_p_wc
+        R_cw_j = R_ji @ R_cw_i
+        t_cw_j = R_ji @ t_cw_i + t_ji
+        R_wc_j = lie.orthonormalize(R_cw_j.T)
+        p_wc_j = -R_cw_j.T @ t_cw_j
+
+        # Solution quality gate against the fine-level keyframe keypoints;
+        # a weak frame keeps the IMU pose.
+        kf_valid_fine = torch.sum(kf.mask & (kf.level == 0))
+        enough = num_matches >= torch.clamp(
+            (en.min_feature_ratio * kf_valid_fine).to(torch.int32), min=8)
+        solved = enough & (est_inliers >= 8)
+        R_wc_j = torch.where(solved, R_wc_j, R_wc_j_imu)
+        p_wc_j = torch.where(solved, p_wc_j, state.kf_p_wc + dp_since_kf)
+
+        # ---------------- keyframe policy
+        rot_cos = 0.5 * (torch.trace(R_ji) - 1.0)
+        is_kf = solved & ((disparity > en.kf_disparity_px) | (rot_cos < kf_rot_thresh))
+
+        # ---------------- state update
+        win = state.window
+        Wn = win.uv.shape[0]
+        full = win.count >= Wn
+        slot = torch.clamp(win.count, max=Wn - 1)
+        at_slot = torch.arange(Wn, device=self.device) == slot
+        R_cw_new = R_wc_j.T
+        t_cw_new = -R_wc_j.T @ p_wc_j
+        t_since_kf = state.kf_time + T
+
+        # Velocity: vision displacement since the keyframe over the time
+        # since it (solved), else IMU propagation; rate-limited and clamped.
+        v_vis = (p_wc_j - state.kf_p_wc) / torch.clamp(t_since_kf, min=1e-3)
+        v_imu = state.v_w + g_w * T + (R_wb_prev @ pre.dv)
+        v_new = torch.where(solved, v_vis, v_imu)
+        dv_max = 20.0 * torch.clamp(T, min=1e-3)
+        v_new = state.v_w + torch.clamp(v_new - state.v_w, min=-dv_max, max=dv_max)
+        v_new = torch.clamp(v_new, -en.max_velocity, en.max_velocity)
+
+        shadow_p_j = state.shadow_kf_p_wc + dp_since_kf
+        if chain:
+            t_cw_i_sh = -R_cw_i @ state.shadow_kf_p_wc
+            t_cw_j_sh = R_ji @ t_cw_i_sh + t_dir * s_shadow
+            shadow_p_j = torch.where(solved, -R_cw_j.T @ t_cw_j_sh, shadow_p_j)
+
+        # Promotion: computed every frame, selected by is_kf.
+        def roll_if_full(x):
+            return torch.where(full, torch.roll(x, -1, dims=0), x)
+
+        def set_slot(x, v):
+            sel_ = at_slot.reshape((Wn,) + (1,) * (x.dim() - 1))
+            return torch.where(sel_, v.to(x.dtype)[None], x)
+
+        imu_valid_r = roll_if_full(win.imu_valid)
+        imu_valid_r = torch.where(full & (torch.arange(Wn, device=self.device) == 0),
+                                  torch.zeros_like(imu_valid_r), imu_valid_r)
+        promoted = win._replace(
+            uv=set_slot(roll_if_full(win.uv), feat.uv),
+            desc=set_slot(roll_if_full(win.desc), feat.desc),
+            kp_mask=set_slot(roll_if_full(win.kp_mask), feat.mask),
+            R_cw=set_slot(roll_if_full(win.R_cw), R_cw_new),
+            t_cw=set_slot(roll_if_full(win.t_cw), t_cw_new),
+            valid=set_slot(roll_if_full(win.valid), torch.ones((), dtype=torch.bool,
+                                                               device=self.device)),
+            count=torch.clamp(win.count + 1, max=Wn),
+            v_w=set_slot(roll_if_full(win.v_w), v_new),
+            imu_dR=set_slot(roll_if_full(win.imu_dR), pre_acc.dR),
+            imu_dv=set_slot(roll_if_full(win.imu_dv), pre_acc.dv),
+            imu_dp=set_slot(roll_if_full(win.imu_dp), pre_acc.dp),
+            imu_dt=set_slot(roll_if_full(win.imu_dt), t_since_kf),
+            imu_valid=set_slot(imu_valid_r, (pre.dt > 1e-6) & (slot > 0)),
+            imu_J_R_bg=set_slot(roll_if_full(win.imu_J_R_bg), pre_acc.J_dR_bg),
+            imu_J_v_bg=set_slot(roll_if_full(win.imu_J_v_bg), pre_acc.J_dv_bg),
+            imu_J_v_ba=set_slot(roll_if_full(win.imu_J_v_ba), pre_acc.J_dv_ba),
+            imu_J_p_bg=set_slot(roll_if_full(win.imu_J_p_bg), pre_acc.J_dp_bg),
+            imu_J_p_ba=set_slot(roll_if_full(win.imu_J_p_ba), pre_acc.J_dp_ba),
+            imu_bg_ref=set_slot(roll_if_full(win.imu_bg_ref), bias_g_new),
+            imu_ba_ref=set_slot(roll_if_full(win.imu_ba_ref), bias_a_new),
+        )
+        if chain:
+            # Each matched landmark's depth in the promoted keyframe (unit-
+            # baseline depth x shadow step), scattered to its new keypoint
+            # row; several matches on one row keep the largest.
+            tgt = torch.clamp(m.idx_b, 0, Kb - 1).long()
+            vals = torch.where(chain_pair_ok, d_j_u * s_shadow, torch.zeros_like(d_j_u))
+            depth_p = torch.zeros(Kb, dtype=torch.float32, device=self.device) \
+                .scatter_reduce(0, tgt, vals, reduce="amax", include_self=True)
+            hits = torch.zeros(Kb, dtype=torch.float32, device=self.device) \
+                .scatter_add(0, tgt, chain_pair_ok.float())
+            valid_p = (hits > 0) & (depth_p > 1e-6)
+            shadow_win_p = set_slot(roll_if_full(state.shadow_win_p), shadow_p_j)
+        else:
+            depth_p, valid_p, shadow_win_p = (state.kf_depths, state.kf_depth_valid,
+                                              state.shadow_win_p)
+
+        def on_kf(a, b):
+            return torch.where(is_kf, a, b)
+
+        new_window = type(win)(*[on_kf(a, b) for a, b in zip(promoted, win)])
+        new_kf_feat = Features(*[on_kf(a, b) for a, b in zip(feat, kf)])
+        eye3 = torch.eye(3, dtype=torch.float32, device=self.device)
+        zero33 = torch.zeros((3, 3), dtype=torch.float32, device=self.device)
+        zero3 = torch.zeros(3, dtype=torch.float32, device=self.device)
+        evict = is_kf & full
+        true_ = torch.ones((), dtype=torch.bool, device=self.device)
+        new_state = EngineState(
+            q_wb=q_wb,
+            v_w=v_new,
+            bias_g=bias_g_new,
+            bias_a=bias_a_new,
+            R_wc=R_wc_j,
+            p_wc=p_wc_j,
+            kf_R_wc=on_kf(R_wc_j, state.kf_R_wc),
+            kf_p_wc=on_kf(p_wc_j, state.kf_p_wc),
+            kf_feat=new_kf_feat,
+            kf_image=state.kf_image,   # read only by the photometric refine
+            window=new_window,
+            frame_idx=state.frame_idx + 1,
+            kf_count=state.kf_count + is_kf.to(torch.int32),
+            kf_time=on_kf(torch.zeros_like(t_since_kf), t_since_kf),
+            kf_dp_imu=on_kf(zero3, dp_since_kf),
+            kf_pre_dR=on_kf(eye3, pre_acc.dR),
+            kf_pre_dv=on_kf(zero3, pre_acc.dv),
+            kf_pre_dp=on_kf(zero3, pre_acc.dp),
+            kf_pre_J_R_bg=on_kf(zero33, pre_acc.J_dR_bg),
+            kf_pre_J_v_bg=on_kf(zero33, pre_acc.J_dv_bg),
+            kf_pre_J_v_ba=on_kf(zero33, pre_acc.J_dv_ba),
+            kf_pre_J_p_bg=on_kf(zero33, pre_acc.J_dp_bg),
+            kf_pre_J_p_ba=on_kf(zero33, pre_acc.J_dp_ba),
+            # Marginalization-prior handoff on eviction (pending -> active).
+            marg_H=torch.where(evict, state.marg_pend_H, state.marg_H),
+            marg_R_cw=torch.where(evict, state.marg_pend_R_cw, state.marg_R_cw),
+            marg_t_cw=torch.where(evict, state.marg_pend_t_cw, state.marg_t_cw),
+            marg_v=torch.where(evict, state.marg_pend_v, state.marg_v),
+            marg_pend_H=torch.where(evict, torch.zeros_like(state.marg_pend_H),
+                                    state.marg_pend_H),
+            marg_pend_R_cw=state.marg_pend_R_cw,
+            marg_pend_t_cw=state.marg_pend_t_cw,
+            marg_pend_v=state.marg_pend_v,
+            # GT-scale steps are metric by construction: both latches set.
+            vi_aligned=true_,
+            kf_depths=on_kf(depth_p, state.kf_depths),
+            kf_depth_valid=on_kf(valid_p, state.kf_depth_valid),
+            shadow_win_p=on_kf(shadow_win_p, state.shadow_win_p),
+            shadow_p_wc=shadow_p_j,
+            shadow_kf_p_wc=on_kf(shadow_p_j, state.shadow_kf_p_wc),
+            shadow_scale=torch.where(solved, torch.clamp(s_shadow, 1e-4, 1e4),
+                                     state.shadow_scale),
+            origin_p_wc=state.origin_p_wc,
+            shadow_origin_p=state.shadow_origin_p,
+            bootstrap_applies=state.bootstrap_applies,
+            vi_engaged=true_,
+        )
+        result = FrameResult(
+            p_wc=p_wc_j,
+            R_wc=R_wc_j,
+            q_wb=q_wb,
+            v_w=v_new,
+            is_keyframe=is_kf,
+            num_matches=num_matches,
+            num_inliers=est_inliers,
+            disparity=disparity,
+            t_dir_cam=t_dir,
+            used_fallback=used_fallback,
+            t_pred_cam=t_pred_cam,
+        )
+        return new_state, result

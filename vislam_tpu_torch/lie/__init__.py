@@ -1,0 +1,15 @@
+"""Quaternion + SO(3) math (port of vislam_tpu.lie)."""
+
+from vislam_tpu_torch.lie.quat import (
+    mat_to_quat,
+    quat_canonical,
+    quat_mul,
+    quat_normalize,
+    quat_to_mat,
+)
+from vislam_tpu_torch.lie.so3 import (
+    orthonormalize,
+    so3_exp,
+    so3_hat,
+    so3_left_jacobian,
+)

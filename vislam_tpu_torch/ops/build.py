@@ -1,0 +1,75 @@
+"""Build the port's CUDA kernels from `ops/csrc/` and load them with ctypes.
+
+Each source is compiled on first use into `vislam_tpu_torch/_build/`, as a
+shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so ops/csrc/<name>.cu
+
+The file name carries a hash of the source and the flags, so an edited
+source rebuilds and a stale library is never loaded. A plain C interface
+(no PyTorch headers) keeps the build to seconds. A failed build raises with
+nvcc's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
+                       "the port's CUDA kernels are built from source at first use")
+
+
+def library_path(name: str) -> str:
+    """Path of the built library for csrc/<name>.cu (built if missing)."""
+    src = os.path.join(_CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        text = f.read()
+    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = os.path.join(_BUILD, f"{name}-{tag}.so")
+    if os.path.exists(out):
+        return out
+    nvcc = nvcc_path()
+    os.makedirs(_BUILD, exist_ok=True)
+    # Build into a temporary name and rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(library_path(name))
+        _loaded[name] = lib
+    return lib

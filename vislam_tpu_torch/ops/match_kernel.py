@@ -1,0 +1,106 @@
+"""Descriptor top-2 matching core: the CUDA kernel's wrapper and its plain
+PyTorch twin (port of `vislam_tpu/ops/match_kernel.py`).
+
+`match_top2(desc_a, mask_a, desc_b, mask_b[, uv_pred, uv_b, gate_radius])`
+returns (min1 (K,), min2 (K,), arg1 (K,) int32, colarg (N,) int32) over the
+squared-L2 distance matrix max(|a|^2 + |b|^2 - 2 a.b, 0), with invalid pairs
+(and, gated, pairs outside the guided disc) at 1e9; first index wins ties.
+A CPU tensor runs the plain twin; a CUDA tensor launches
+`csrc/match_top2.cu` or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vislam_tpu_torch.ops import build
+
+BIG = 1e9
+
+
+def match_top2_plain(desc_a, mask_a, desc_b, mask_b, uv_pred=None, uv_b=None,
+                     gate_radius: float = 0.0):
+    """The plain version (materialises the K x N matrix)."""
+    a = desc_a.float()
+    b = desc_b.float()
+    sq_a = torch.sum(a * a, dim=-1, keepdim=True)
+    sq_b = torch.sum(b * b, dim=-1)[None, :]
+    d = torch.clamp(sq_a + sq_b - 2.0 * (a @ b.T), min=0.0)
+    big = torch.full_like(d, BIG)
+    d = torch.where(mask_a[:, None] & mask_b[None, :], d, big)
+    if uv_pred is not None and uv_b is not None and gate_radius > 0.0:
+        du = uv_pred[:, None, 0] - uv_b[None, :, 0]
+        dv = uv_pred[:, None, 1] - uv_b[None, :, 1]
+        d = torch.where(du * du + dv * dv <= gate_radius * gate_radius, d, big)
+    arg1 = torch.argmin(d, dim=1)
+    min1 = torch.gather(d, 1, arg1[:, None])[:, 0]
+    cols = torch.arange(d.shape[1], device=d.device)
+    min2 = torch.min(torch.where(cols[None, :] == arg1[:, None], big, d), dim=1).values
+    colarg = torch.argmin(d, dim=0)
+    return min1, min2, arg1.to(torch.int32), colarg.to(torch.int32)
+
+
+def _lib():
+    fn = build.load("match_top2").match_top2
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_float, ctypes.c_int,
+                       p, p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, shape, dtype):
+    if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"match_top2 kernel: {name} must be contiguous {dtype} "
+                         f"{shape} on CUDA, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device} contiguous={t.is_contiguous()}")
+
+
+def match_top2(desc_a, mask_a, desc_b, mask_b, uv_pred=None, uv_b=None,
+               gate_radius: float = 0.0):
+    """(min1, min2, arg1, colarg); gated when uv_pred, uv_b and
+    gate_radius > 0 are all given (as the reference)."""
+    gated = uv_pred is not None and uv_b is not None and gate_radius > 0.0
+    if desc_a.device.type == "cpu":
+        return match_top2_plain(desc_a, mask_a, desc_b, mask_b, uv_pred, uv_b,
+                                gate_radius)
+    if desc_a.device.type != "cuda":
+        raise ValueError(f"unsupported device {desc_a.device}")
+    K, D = desc_a.shape
+    N = desc_b.shape[0]
+    if D != 128 or K < 1 or N < 1:
+        raise ValueError(f"match_top2 kernel takes (K, 128) x (N, 128) with "
+                         f"K, N >= 1, got {tuple(desc_a.shape)} x {tuple(desc_b.shape)}")
+    _check("desc_a", desc_a, (K, D), torch.float32)
+    _check("desc_b", desc_b, (N, D), torch.float32)
+    _check("mask_a", mask_a, (K,), torch.bool)
+    _check("mask_b", mask_b, (N,), torch.bool)
+    if gated:
+        _check("uv_pred", uv_pred, (K, 2), torch.float32)
+        _check("uv_b", uv_b, (N, 2), torch.float32)
+    dev = desc_a.device
+    min1 = torch.empty(K, dtype=torch.float32, device=dev)
+    min2 = torch.empty(K, dtype=torch.float32, device=dev)
+    arg1 = torch.empty(K, dtype=torch.int32, device=dev)
+    colarg = torch.empty(N, dtype=torch.int32, device=dev)
+    colkey = torch.empty(N, dtype=torch.int64, device=dev)
+    fn = _lib()
+    with torch.cuda.device(dev):
+        err = fn(desc_a.data_ptr(), desc_b.data_ptr(), mask_a.data_ptr(),
+                 mask_b.data_ptr(), uv_pred.data_ptr() if gated else None,
+                 uv_b.data_ptr() if gated else None,
+                 float(gate_radius) ** 2 if gated else 0.0, int(gated),
+                 min1.data_ptr(), min2.data_ptr(), arg1.data_ptr(),
+                 colarg.data_ptr(), colkey.data_ptr(), K, N,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"match_top2 launch failed: cudaError {err}")
+    match_top2.launches += 1
+    return min1, min2, arg1, colarg
+
+
+match_top2.launches = 0

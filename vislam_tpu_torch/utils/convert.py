@@ -1,0 +1,77 @@
+"""Convert engine state and sequence inputs between numpy trees and the
+port's tensors.
+
+`state_from_numpy` takes the reference's EngineState after
+`jax.tree.map(np.asarray, state)` (any NamedTuple with the same field
+names) and returns the port's EngineState on `device`; `state_to_numpy`
+goes back. Dtypes are kept: the window descriptor bank stays bfloat16,
+masks stay bool, counters stay int32. This module imports neither jax nor
+the reference package; numpy's bfloat16 is the `ml_dtypes` one, imported
+only when a bfloat16 array has to be made.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vislam_tpu_torch.engine.batch import SequenceInputs
+from vislam_tpu_torch.engine.state import EngineState, KeyframeWindow
+from vislam_tpu_torch.frontend.features import Features
+
+_NESTED = {("EngineState", "kf_feat"): Features, ("EngineState", "window"): KeyframeWindow}
+
+
+def _tensor(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(np.uint16).view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _from(cls, tree, device):
+    vals = {}
+    for name in cls._fields:
+        sub = _NESTED.get((cls.__name__, name))
+        v = getattr(tree, name)
+        vals[name] = _from(sub, v, device) if sub else _tensor(v, device)
+    return cls(**vals)
+
+
+def _to(tree):
+    return type(tree)(*[_to(v) if isinstance(v, tuple) else _array(v) for v in tree])
+
+
+def state_from_numpy(tree, device) -> EngineState:
+    """Reference EngineState (numpy leaves) -> the port's, on `device`."""
+    return _from(EngineState, tree, device)
+
+
+def state_to_numpy(state: EngineState) -> EngineState:
+    """The port's EngineState -> the same NamedTuples with numpy leaves."""
+    return _to(state)
+
+
+def inputs_from_numpy(tree, device) -> SequenceInputs:
+    """Reference SequenceInputs (numpy leaves) -> the port's, on `device`."""
+    return SequenceInputs(
+        images=_tensor(tree.images, device), imu=_tensor(tree.imu, device),
+        imu_dt=_tensor(tree.imu_dt, device), gt_pos=_tensor(tree.gt_pos, device),
+        use_gt_scale=bool(np.asarray(tree.use_gt_scale)))
+
+
+def inputs_to_numpy(inputs: SequenceInputs) -> SequenceInputs:
+    """The port's SequenceInputs -> numpy leaves (use_gt_scale a numpy bool)."""
+    return SequenceInputs(images=_array(inputs.images), imu=_array(inputs.imu),
+                          imu_dt=_array(inputs.imu_dt), gt_pos=_array(inputs.gt_pos),
+                          use_gt_scale=np.asarray(inputs.use_gt_scale))
