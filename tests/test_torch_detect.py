@@ -1,11 +1,11 @@
-"""vislam_tpu_torch against vislam_tpu: kernel 1's plain twin (Shi-Tomasi
-response + 5x5 NMS), the pyramid, keypoint selection, descriptors and
-extract_features.
+"""vislam_tpu_torch against vislam_tpu: kernel 1's plain twins (the six
+response families + 5x5 NMS), the pyramid, keypoint selection, descriptors
+and extract_features.
 
 Kernel 1 itself runs only on a CUDA card; chip_smoke.py holds it against
-this plain twin there. Here the twin is held against the reference's Pallas
-kernel in interpret mode (as tests/test_ops.py runs it) and against the
-reference's XLA path.
+these plain twins there. Here the twins are held against the reference's
+Pallas kernel in interpret mode (as tests/test_ops.py runs it) and against
+the reference's XLA path.
 """
 
 import jax.numpy as jnp
@@ -18,13 +18,17 @@ from vislam_tpu.frontend import descriptor as jdesc
 from vislam_tpu.frontend import detect as jdet
 from vislam_tpu.frontend.features import extract_features as j_extract
 from vislam_tpu.frontend.pyramid import build_pyramid as j_pyramid
+from vislam_tpu.frontend.pyramid import gaussian_blur as j_blur
+from vislam_tpu.frontend.pyramid import scharr_gradients as j_scharr
 from vislam_tpu.ops.harris_kernel import harris_nms_pallas
 from vislam_tpu.utils.config import FrontendConfig as JFrontend
 from vislam_tpu_torch.frontend import descriptor as tdesc
 from vislam_tpu_torch.frontend import detect as tdet
 from vislam_tpu_torch.frontend.features import extract_features as t_extract
 from vislam_tpu_torch.frontend.pyramid import build_pyramid as t_pyramid
-from vislam_tpu_torch.ops.harris_kernel import shi_tomasi_nms
+from vislam_tpu_torch.frontend.pyramid import gaussian_blur as t_blur
+from vislam_tpu_torch.frontend.pyramid import scharr_gradients as t_scharr
+from vislam_tpu_torch.ops.harris_kernel import FAMILIES, response_nms
 from vislam_tpu_torch.utils.config import FrontendConfig as TFrontend
 
 torch.set_num_threads(2)
@@ -51,7 +55,7 @@ def test_response_nms_matches_pallas_interpret(frame, shape):
     padding differ only near the image border), NMS agreement > 0.995."""
     img = frame[: shape[0], : shape[1]]
     p_nms, p_resp = harris_nms_pallas(jnp.asarray(img), interpret=True)
-    t_nms, t_resp = shi_tomasi_nms(torch.from_numpy(img.copy()))
+    t_nms, t_resp = response_nms(torch.from_numpy(img.copy()), "shi_tomasi")
     inner = np.s_[12:-12, 12:-12]
     np.testing.assert_allclose(t_resp.numpy()[inner], np.asarray(p_resp)[inner],
                                rtol=5e-3, atol=5e-2)
@@ -65,12 +69,88 @@ def test_response_nms_matches_xla_f32_everywhere(frame):
     img = frame[:120, :188]
     ref = np.asarray(jdet.harris_response(jnp.asarray(img)))
     ref_nms = np.asarray(jdet._nms(jnp.asarray(ref), 2))
-    t_nms, t_resp = shi_tomasi_nms(torch.from_numpy(img.copy()))
+    t_nms, t_resp = response_nms(torch.from_numpy(img.copy()), "shi_tomasi")
     np.testing.assert_allclose(t_resp.numpy(), ref, rtol=5e-3, atol=5e-2)
     assert (np.isneginf(t_nms.numpy()) == np.isneginf(ref_nms)).mean() > 0.995
     # Batched input: one call over a (B, H, W) stack equals per-image calls.
-    b_nms, b_resp = shi_tomasi_nms(torch.from_numpy(np.stack([img, img[::-1].copy()])))
+    b_nms, b_resp = response_nms(torch.from_numpy(np.stack([img, img[::-1].copy()])))
     np.testing.assert_array_equal(b_resp[0].numpy(), t_resp.numpy())
+
+
+# Where each family's twin agrees with the reference on the whole field:
+# XLA's SAME padding for the families XLA has (fast excepted: XLA wraps
+# around, the port and the TPU kernel read zeros) and the TPU kernel's
+# zero-padding-once for _gradmag2 and fast. Elsewhere they agree in the
+# interior (12 px in, as tests/test_ops.py holds the TPU kernel).
+WHOLE_FIELD_XLA = {"shi_tomasi", "harris", "dog", "hessian"}
+WHOLE_FIELD_PALLAS = {"dog", "fast", "_gradmag2"}
+
+
+def _rel_err(a, b, sl=np.s_[:, :]):
+    scale = max(1.0, np.abs(b[sl]).max())
+    return np.abs(a[sl] - b[sl]).max() / scale
+
+
+@pytest.mark.parametrize("det", FAMILIES)
+def test_family_twin_matches_pallas_interpret(det):
+    """Each family's plain twin against the reference's Pallas kernel in
+    interpret mode, on random pixels (tests/test_ops.py's input and bounds):
+    error / scale < 1e-4 and NMS agreement > 0.999 in the interior, and on
+    the whole field where both pad alike."""
+    img = np.random.default_rng(3).uniform(0, 255, (96, 136)).astype(np.float32)
+    p_nms, p_resp = (None if x is None else np.asarray(x)
+                     for x in harris_nms_pallas(jnp.asarray(img), interpret=True, detector=det))
+    t_nms, t_resp = response_nms(torch.from_numpy(img), det)
+    t_resp = t_resp.numpy()
+    inner = np.s_[12:-12, 12:-12]
+    assert _rel_err(t_resp, p_resp, inner) < 1e-4
+    if det in WHOLE_FIELD_PALLAS:
+        assert _rel_err(t_resp, p_resp) < 1e-4
+    if det == "_gradmag2":
+        assert t_nms is None
+    else:
+        agree = np.isneginf(t_nms.numpy()[inner]) == np.isneginf(p_nms[inner])
+        assert agree.mean() > 0.999, agree.mean()
+
+
+@pytest.mark.parametrize("det", sorted(jdet.DETECTOR_RESPONSES))
+def test_family_twin_matches_xla_response(det):
+    """Each family's plain twin against the reference's XLA response and
+    its reduce_window NMS, float32, same bounds as above."""
+    img = np.random.default_rng(4).uniform(0, 255, (96, 136)).astype(np.float32)
+    ref = np.asarray(jdet.DETECTOR_RESPONSES[det](jnp.asarray(img)))
+    ref_nms = np.asarray(jdet._nms(jnp.asarray(ref), 2))
+    t_nms, t_resp = response_nms(torch.from_numpy(img), det)
+    t_resp = t_resp.numpy()
+    inner = np.s_[12:-12, 12:-12]
+    assert _rel_err(t_resp, ref, inner) < 1e-4
+    agree = np.isneginf(t_nms.numpy()[inner]) == np.isneginf(ref_nms[inner])
+    assert agree.mean() > 0.999, agree.mean()
+    if det in WHOLE_FIELD_XLA:
+        assert _rel_err(t_resp, ref) < 1e-4
+        assert (np.isneginf(t_nms.numpy()) == np.isneginf(ref_nms)).mean() > 0.999
+    # The port's names for the plain responses are the reference's.
+    assert tdet.DETECTOR_RESPONSES[det](torch.from_numpy(img)).shape == img.shape
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_blur_and_scharr_match_reference(frame, dtype):
+    """gaussian_blur and scharr_gradients: SAME zero padding on the whole
+    field. float32: round-off (1e-5 relative). bfloat16: both round every
+    pass to bf16 (taps too), so they agree to one bf16 step (2^-8
+    relative) where the two frameworks' float32 sums straddle a rounding
+    boundary."""
+    img = frame[:96, :136]
+    j_img = jnp.asarray(img, jnp.dtype(dtype))
+    t_img = torch.from_numpy(img.copy()).to(getattr(torch, dtype))
+    rtol = 1e-5 if dtype == "float32" else 2 ** -8
+    for sigma, r in ((1.0, 3), (1.6, 4), (2.0, 3), (1.0, 2)):
+        j = np.asarray(j_blur(j_img, sigma, radius=r).astype(jnp.float32))
+        t = t_blur(t_img, sigma, radius=r).float().numpy()
+        np.testing.assert_allclose(t, j, rtol=rtol, atol=rtol * 255)
+    for a, b in zip(t_scharr(t_img), j_scharr(j_img)):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b.astype(jnp.float32)),
+                                   rtol=rtol, atol=rtol * 255)
 
 
 def test_pyramid_is_bit_identical_in_bf16(frame):

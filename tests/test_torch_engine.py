@@ -234,9 +234,6 @@ UNSUPPORTED = [
     ("engine", "photometric_refine", True),
     ("backend", "refine_in_step", True),
     ("backend", "vi_factors", True),
-    ("frontend", "scale_space", "nonlinear"),
-    ("frontend", "detector", "harris"),
-    ("frontend", "descriptor", "brief"),
     ("frontend", "oriented", True),
     ("frontend", "guided_gate_px", 40.0),
 ]
@@ -249,6 +246,34 @@ def test_unsupported_configurations_raise(seq, section, field, value):
         getattr(base, section), **{field: value})})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine(seq["calib"], cfg, device="cpu")
+
+
+FRONTENDS = {
+    "kaze": dict(scale_space="nonlinear", detector="hessian"),
+    "akaze": dict(scale_space="nonlinear", detector="fast", descriptor="brief"),
+    "harris": dict(detector="harris"),
+    "dog": dict(detector="dog"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FRONTENDS))
+def test_frontend_variants_construct_and_step(seq, name):
+    """The frontends that raised before their kernels were ported (the
+    nonlinear scale space, the other detector families, BRIEF) construct
+    and step at full width: K = 768 keypoints of the right descriptor
+    width, a finite pose, matches against the first keyframe."""
+    base = tconfig.SystemConfig()
+    cfg = dataclasses.replace(base, frontend=dataclasses.replace(base.frontend,
+                                                                 **FRONTENDS[name]))
+    eng = TEngine(seq["calib"], cfg, device="cpu")
+    state = _init(eng, seq)
+    assert tuple(state.kf_feat.desc.shape) == (768, cfg.frontend.desc_dim)
+    assert tuple(state.window.desc.shape) == (10, 768, cfg.frontend.desc_dim)
+    imu, dt = _imu(seq, 1)
+    gt_norm = float(np.linalg.norm(seq["gt_pos"][1] - seq["gt_pos"][0]))
+    state, res = eng.step(state, seq["images"][1], imu, dt, gt_norm, *_noises(0))
+    assert torch.isfinite(res.p_wc).all() and int(state.frame_idx) == 1
+    assert int(res.num_matches) > 30
 
 
 def test_nms_radius_other_than_2_raises_on_cuda_only(seq):

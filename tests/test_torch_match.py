@@ -1,12 +1,14 @@
 """vislam_tpu_torch against vislam_tpu: kernel 2's plain twin (distances +
 row top-2 + column argmin) and match_descriptors, ungated and gated, at the
-engine's shapes (K = 768 and 512, D = 128).
+engine's shapes (K = 768 and 512, D = 128 SIFT; K = 768, D = 256 BRIEF).
 
 Kernel 2 itself runs only on a CUDA card; chip_smoke.py holds it against
 this plain twin there. Tolerances follow tests/test_ops.py: distances at
 rtol 1e-4 (float32 dot products summed in another order), indices and
 masks exact away from near-ties (rows whose best and second-best distance
-differ by less than 1e-5 relative could legitimately swap).
+differ by less than 1e-5 relative could legitimately swap). BRIEF distances
+are exact multiples of 1/64, so there distances and indices are exact on
+every row and column, the many exact ties included.
 """
 
 import jax.numpy as jnp
@@ -15,10 +17,13 @@ import pytest
 import torch
 
 from vislam_tpu.frontend.match import match_descriptors as j_match
+from vislam_tpu.frontend import binary_desc as jbin
 from vislam_tpu.ops.match_kernel import match_top2_pallas
+from vislam_tpu_torch.frontend import binary_desc as tbin
 from vislam_tpu_torch.frontend.match import match_descriptors as t_match
 from vislam_tpu_torch.ops import build
-from vislam_tpu_torch.ops.harris_kernel import shi_tomasi_nms
+from vislam_tpu_torch.ops.fed_kernel import fed_evolve
+from vislam_tpu_torch.ops.harris_kernel import response_nms
 from vislam_tpu_torch.ops.match_kernel import match_top2, match_top2_plain
 
 torch.set_num_threads(2)
@@ -131,8 +136,11 @@ def test_wrappers_run_the_plain_version_only_for_cpu_tensors():
     """The plain versions run because the tensor lies on the CPU, not as a
     fallback: a tensor on any other non-CUDA device raises."""
     img = torch.zeros((32, 32), device="meta")
+    for det in ("shi_tomasi", "hessian", "_gradmag2"):
+        with pytest.raises(ValueError, match="device"):
+            response_nms(img, det)
     with pytest.raises(ValueError, match="device"):
-        shi_tomasi_nms(img)
+        fed_evolve(img, torch.ones((), device="meta"), (0.1, 0.2))
     d = torch.zeros((8, 128), device="meta")
     m = torch.ones(8, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="device"):
@@ -144,7 +152,70 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "_BUILD", str(tmp_path / "_build"))
-    for name in ("shi_tomasi_nms", "match_top2"):
+    for name in build.SOURCES:
         with pytest.raises(RuntimeError, match="nvcc"):
             build.library_path(name)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build_all(build.SOURCES)
     assert not (tmp_path / "_build").exists()
+
+
+def _brief_pair(K=768, seed=0):
+    """BRIEF-like descriptors (+-1/16 unit vectors) where B is A with a few
+    bits flipped per row, plus duplicated rows: exact ties, many of them."""
+    rng = np.random.default_rng(seed)
+    a = np.where(rng.uniform(size=(K, 256)) > 0.5, 1.0, -1.0).astype(np.float32) / 16
+    a[K // 2:K // 2 + 40] = a[:40]                     # duplicate rows: column ties
+    perm = rng.permutation(K)
+    b = a[perm].copy()
+    flips = rng.integers(0, 256, (K, 6))
+    for i in range(K):
+        b[i, flips[i]] *= -1.0
+    b[10:30] = b[40:60]                                # duplicate columns: row ties
+    ma = rng.uniform(size=K) > 0.1
+    mb = rng.uniform(size=K) > 0.1
+    uv_a = rng.uniform([0, 0], [752, 480], (K, 2)).astype(np.float32)
+    uv_b = (uv_a[perm] + rng.normal(scale=30.0, size=(K, 2))).astype(np.float32)
+    return a, b, ma, mb, uv_a, uv_b
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_top2_twin_d256_exact_with_ties(gated):
+    """D = 256 against the Pallas kernel in interpret mode: distances equal,
+    and arg1 and colarg equal on every row and column, ties included (the
+    first index wins on both sides)."""
+    a, b, ma, mb, uv_a, uv_b = _brief_pair(seed=1 + gated)
+    gate = dict(uv_pred=uv_a, uv_b=uv_b, gate_radius=GATE) if gated else {}
+    p = match_top2_pallas(jnp.asarray(a), jnp.asarray(ma), jnp.asarray(b), jnp.asarray(mb),
+                          interpret=True,
+                          **{k: (jnp.asarray(v) if k != "gate_radius" else v)
+                             for k, v in gate.items()})
+    t = match_top2(_t(a), _t(ma), _t(b), _t(mb),
+                   **{k: (_t(v) if k != "gate_radius" else v) for k, v in gate.items()})
+    p_min1, p_min2, p_arg1, p_col = (np.asarray(x) for x in p)
+    t_min1, t_min2, t_arg1, t_col = (x.numpy() for x in t)
+    ties = (p_min1 == p_min2) & (p_min1 < 5e8)
+    assert ties.sum() >= 8, ties.sum()
+    np.testing.assert_array_equal(t_min1, p_min1)
+    np.testing.assert_array_equal(t_min2, p_min2)
+    np.testing.assert_array_equal(t_arg1, p_arg1)
+    np.testing.assert_array_equal(t_col, p_col)
+    # Distances are Hamming distances: multiples of 4/256 = 1/64.
+    h = tbin.hamming_from_l2sq(t[0][ma & (p_min1 < 5e8)])
+    np.testing.assert_array_equal(h.numpy() / 64.0, t_min1[ma & (p_min1 < 5e8)])
+    np.testing.assert_array_equal(
+        h.numpy(), np.asarray(jbin.hamming_from_l2sq(jnp.asarray(p_min1[ma & (p_min1 < 5e8)]))))
+
+
+def test_match_descriptors_d256_matches_reference():
+    """Ratio + mutual check on BRIEF-like descriptors: the same mask and
+    indices as the reference, ties and all."""
+    a, b, ma, mb, _, _ = _brief_pair(seed=7)
+    j = j_match(jnp.asarray(a), jnp.asarray(ma), jnp.asarray(b), jnp.asarray(mb),
+                ratio=0.8, mutual=True)
+    t = t_match(_t(a), _t(ma), _t(b), _t(mb), ratio=0.8, mutual=True)
+    jm = np.asarray(j.mask)
+    assert jm.sum() > 300
+    np.testing.assert_array_equal(t.mask.numpy(), jm)
+    np.testing.assert_array_equal(t.idx_b.numpy(), np.asarray(j.idx_b))
+    np.testing.assert_array_equal(t.dist.numpy(), np.asarray(j.dist))

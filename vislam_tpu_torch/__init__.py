@@ -1,11 +1,13 @@
 """vislam_tpu_torch — the PyTorch/CUDA port of vislam_tpu.
 
 The JAX package `vislam_tpu` stays the reference; this package mirrors its
-layout module for module and runs the default per-frame VIO step
-(GT-scale mode) on an NVIDIA Hopper card. Plain tensor code is PyTorch;
-the detector response+NMS and the descriptor top-2 match are hand-written
-CUDA C++ kernels (`ops/csrc/`), each with a plain PyTorch twin that runs
-for CPU tensors.
+layout module for module and runs the per-frame VIO step (GT-scale mode)
+on an NVIDIA Hopper card, with every frontend of the reference but the
+oriented descriptor: the Gaussian or nonlinear (KAZE/AKAZE) scale space,
+the five detector families, SIFT or BRIEF descriptors. Plain tensor code
+is PyTorch; the detector response+NMS, the FED diffusion step and the
+descriptor top-2 match are hand-written CUDA C++ kernels (`ops/csrc/`),
+each with a plain PyTorch twin that runs for CPU tensors.
 
 This package never imports `jax` or `vislam_tpu`.
 

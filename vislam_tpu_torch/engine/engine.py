@@ -1,5 +1,5 @@
 """The VIO engine: the per-frame step (port of `vislam_tpu/engine/engine.py`,
-default configuration, GT-scale mode).
+GT-scale mode, any frontend but the oriented and always-gated ones).
 
 One frame: Madgwick attitude + IMU preintegration, feature extraction,
 descriptor match against the keyframe, IMU-rotation-compensated translation
@@ -100,12 +100,6 @@ def _check_supported(cfg: SystemConfig, device: torch.device) -> None:
          "queue 1, frontend variants (photometric refine)"),
         (be.refine_in_step, "backend.refine_in_step", "queue 1, slice 2 (SLAM mode)"),
         (be.vi_factors, "backend.vi_factors", "queue 1, slice 2 (SLAM mode)"),
-        (fe.scale_space != "gaussian", f"frontend.scale_space={fe.scale_space!r}",
-         "queue 1, frontend variants + queue 2 kernel 3 (FED)"),
-        (fe.detector != "shi_tomasi", f"frontend.detector={fe.detector!r}",
-         "queue 2, kernel 1's other detector families"),
-        (fe.descriptor != "sift", f"frontend.descriptor={fe.descriptor!r}",
-         "queue 1, frontend variants (BRIEF)"),
         (fe.oriented, "frontend.oriented", "queue 1, frontend variants (oriented SIFT)"),
         (fe.guided_gate_px > 0, "frontend.guided_gate_px",
          "queue 1, frontend variants (always-on guided matching)"),

@@ -15,6 +15,9 @@ import math
 import numpy as np
 import torch
 
+from vislam_tpu_torch.frontend.binary_desc import PATTERN
+from vislam_tpu_torch.frontend.pyramid import gaussian_taps
+
 _GRID = 16           # 16x16 gradient samples
 _CELLS = 4           # 4x4 spatial cells
 _NBINS = 8           # orientation bins
@@ -59,13 +62,15 @@ _OFFS, _WSP = _static_geometry(patch_scale=1.5)
 
 class DescriptorGeometry:
     """The static sampling geometry as tensors on one device: per-axis grid
-    offsets (16,) and the (S, 16) spatial-weight matrix. Built once per
-    engine so the per-frame step uploads nothing."""
+    offsets (16,) and the (S, 16) spatial-weight matrix of this descriptor,
+    and the (256, 2, 2) BRIEF test pattern (`binary_desc.PATTERN`). Built
+    once per engine so the per-frame step uploads nothing."""
 
     def __init__(self, device):
         self.dx = torch.as_tensor(_OFFS[:_GRID, 0].copy(), device=device)
         self.dy = torch.as_tensor(_OFFS[::_GRID, 1].copy(), device=device)
         self.wsp = torch.as_tensor(_WSP, device=device)
+        self.brief = torch.as_tensor(PATTERN, device=device)
 
 
 def extract_patches(img, uv, P: int):
@@ -93,9 +98,7 @@ def _shift_conv_patches(pat, k, axis: int):
 
 def _patch_gradients(patches, smooth_sigma: float):
     """Blur(sigma, radius 2) + Scharr gradients in patch space."""
-    x = np.arange(-2, 3, dtype=np.float32)
-    g = np.exp(-0.5 * (x / smooth_sigma) ** 2)
-    g /= g.sum()
+    g = gaussian_taps(smooth_sigma, 2)
     sm = _shift_conv_patches(_shift_conv_patches(patches, g, 1), g, 2)
     sx = (3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0)
     dx = (-1.0, 0.0, 1.0)

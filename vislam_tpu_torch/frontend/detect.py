@@ -1,21 +1,31 @@
 """Corner detection with fixed-capacity grid top-k (port of
-`vislam_tpu/frontend/detect.py`, Shi-Tomasi response).
+`vislam_tpu/frontend/detect.py`, every detector family).
 
-Per pyramid level: the fused response+NMS (`ops/harris_kernel.py`; the CUDA
-kernel for a CUDA tensor), top-k per grid cell inside the border, quadratic
-subpixel refinement on the raw response, and a gradient orientation per
-keypoint. Every index into a field is clamped explicitly: CUDA indexing
-asserts where JAX clamps.
+Per pyramid level: the fused response+NMS of the chosen family
+(`ops/harris_kernel.py`, which also holds the plain responses re-exported
+here; the CUDA kernel for a CUDA tensor), top-k per grid cell inside the
+border, quadratic subpixel refinement on the raw response, and a gradient
+orientation per keypoint. Every index into a field is clamped explicitly:
+CUDA indexing asserts where JAX clamps.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from vislam_tpu_torch.ops.harris_kernel import shi_tomasi_nms
+from vislam_tpu_torch.frontend.pyramid import gaussian_taps
+from vislam_tpu_torch.ops.harris_kernel import (  # noqa: F401  (the reference's names)
+    _FAST_RING,
+    DETECTOR_RESPONSES,
+    dog_response,
+    fast_response,
+    harris_cornerness,
+    harris_response,
+    hessian_response,
+    response_nms,
+)
 
 
 class Keypoints(NamedTuple):
@@ -84,11 +94,8 @@ def _orientations(img, uv, sigma: float = 2.5):
         _shift_conv_patches, extract_patches)
 
     P = 16
-    r = 3
     patches, iu0, iv0 = extract_patches(img.float(), uv, P)
-    x = np.arange(-r, r + 1, dtype=np.float32)
-    g = np.exp(-0.5 * (x / sigma) ** 2)
-    g /= g.sum()
+    g = gaussian_taps(sigma, 3)
     sm = _shift_conv_patches(_shift_conv_patches(patches, g, 1), g, 2)
     sx = (3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0)
     dx = (-1.0, 0.0, 1.0)
@@ -112,8 +119,10 @@ def detect_keypoints(
     min_score_rel: float = 1e-3,
     border: int = 12,
     levels_used: int = 1,
+    detector: str = "shi_tomasi",
 ) -> Keypoints:
-    """Detect fixed-capacity Shi-Tomasi keypoints over `levels_used` levels.
+    """Detect fixed-capacity keypoints of the `detector` family over
+    `levels_used` levels.
 
     kp_per_cell is an int or per-level budgets. K = grid_rows * grid_cols *
     sum(budgets); rows below the relative score floor are masked out.
@@ -128,7 +137,7 @@ def detect_keypoints(
         img = pyramid[lvl]
         # Response in float32 on the (bf16-rounded) level, as the
         # reference's TPU kernel computes it; selection in float32.
-        resp, full_resp = shi_tomasi_nms(img.float().contiguous(), nms_radius)
+        resp, full_resp = response_nms(img.float().contiguous(), detector, nms_radius)
         uv, score = _grid_topk(resp, grid_rows, grid_cols, kp_by_level[lvl], border)
         uv = _subpixel_refine(full_resp, uv)
         angle = _orientations(img, uv)

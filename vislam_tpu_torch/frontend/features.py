@@ -1,6 +1,6 @@
-"""Per-frame feature extraction: pyramid -> detect -> describe (port of
-`vislam_tpu/frontend/features.py`, Gaussian scale space, Shi-Tomasi
-detector, upright SIFT descriptor)."""
+"""Per-frame feature extraction: scale space -> detect -> describe (port of
+`vislam_tpu/frontend/features.py`: the Gaussian or nonlinear scale space,
+every detector family, upright SIFT or BRIEF descriptors)."""
 
 from __future__ import annotations
 
@@ -8,8 +8,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from vislam_tpu_torch.frontend.binary_desc import describe_binary
 from vislam_tpu_torch.frontend.descriptor import DescriptorGeometry, describe_keypoints
 from vislam_tpu_torch.frontend.detect import detect_keypoints
+from vislam_tpu_torch.frontend.nonlinear import nonlinear_scale_space
 from vislam_tpu_torch.frontend.pyramid import build_pyramid
 from vislam_tpu_torch.utils.config import FrontendConfig
 
@@ -31,14 +33,20 @@ def extract_features(image, cfg: FrontendConfig = FrontendConfig(),
 
     Detection and description run per level (descriptors on the keypoint's
     own level); uv is reported in level-0 pixels. `geom` holds the
-    descriptor's static geometry on the image's device (built here if not
-    given).
+    descriptors' static geometry on the image's device (built here if not
+    given). Descriptors are upright (`cfg.oriented` is not ported).
     """
     if geom is None:
         geom = DescriptorGeometry(image.device)
     image = image.to(getattr(torch, cfg.image_dtype))
     # Levels past levels_used are never read, so they are not built.
-    pyr = build_pyramid(image, min(cfg.num_levels, cfg.levels_used))
+    n_levels = min(cfg.num_levels, cfg.levels_used)
+    if cfg.scale_space == "nonlinear":
+        pyr = nonlinear_scale_space(image, n_levels)
+    elif cfg.scale_space == "gaussian":
+        pyr = build_pyramid(image, n_levels)
+    else:
+        raise ValueError(f"unknown scale_space {cfg.scale_space!r}")
     kps = detect_keypoints(
         pyr,
         grid_rows=cfg.grid_rows,
@@ -48,14 +56,19 @@ def extract_features(image, cfg: FrontendConfig = FrontendConfig(),
         min_score_rel=cfg.min_score,
         border=cfg.patch_size // 2 + 4,
         levels_used=cfg.levels_used,
+        detector=cfg.detector,
     )
     cells = cfg.grid_rows * cfg.grid_cols
     descs = []
     off = 0
     for lvl in range(cfg.levels_used):
         n = cells * cfg.kp_per_cell_by_level[lvl]
-        scale = float(2 ** lvl)
-        descs.append(describe_keypoints(pyr[lvl].float(), kps.uv[off:off + n] / scale, geom))
+        level = pyr[lvl].float()
+        uv = kps.uv[off:off + n] / float(2 ** lvl)
+        if cfg.descriptor == "brief":
+            descs.append(describe_binary(level, uv, torch.zeros_like(uv[:, 0]), geom.brief))
+        else:
+            descs.append(describe_keypoints(level, uv, geom))
         off += n
     return Features(uv=kps.uv, desc=torch.cat(descs, dim=0), score=kps.score,
                     level=kps.level, angle=kps.angle, mask=kps.mask)

@@ -7,7 +7,8 @@ shared library with a plain C interface:
          -Xcompiler -fPIC -o _build/<name>-<hash>.so ops/csrc/<name>.cu
 
 The file name carries a hash of the source and the flags, so an edited
-source rebuilds and a stale library is never loaded. A plain C interface
+source rebuilds and a stale library is never loaded. `build_all` starts one
+nvcc per missing source, all at once. A plain C interface
 (no PyTorch headers) keeps the build to seconds. A failed build raises with
 nvcc's output; nothing falls back.
 """
@@ -27,6 +28,8 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+SOURCES = ("response_nms", "fed_evolve", "match_top2")
+
 _loaded: dict = {}
 
 
@@ -41,29 +44,51 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels are built from source at first use")
 
 
-def library_path(name: str) -> str:
-    """Path of the built library for csrc/<name>.cu (built if missing)."""
+def _target(name: str):
+    """(source path, library path) for csrc/<name>.cu."""
     src = os.path.join(_CSRC, name + ".cu")
     with open(src, "rb") as f:
         text = f.read()
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(_BUILD, f"{name}-{tag}.so")
-    if os.path.exists(out):
-        return out
-    nvcc = nvcc_path()
-    os.makedirs(_BUILD, exist_ok=True)
-    # Build into a temporary name and rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return src, os.path.join(_BUILD, f"{name}-{tag}.so")
+
+
+def build_all(names) -> list:
+    """Paths of the built libraries for csrc/<name>.cu of every name,
+    building the missing ones with one nvcc process each, all started
+    together."""
+    targets = [_target(n) for n in names]
+    missing = [(src, out) for src, out in targets if not os.path.exists(out)]
+    if missing:
+        nvcc = nvcc_path()
+        os.makedirs(_BUILD, exist_ok=True)
+        jobs = []
+        for src, out in missing:
+            # Build into a temporary name and rename: a concurrent or
+            # interrupted build never leaves a half-written library under
+            # the final name.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+            jobs.append((src, out, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, out, tmp, cmd, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed ({proc.returncode}) building {src}:\n"
+                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return [out for _, out in targets]
+
+
+def library_path(name: str) -> str:
+    """Path of the built library for csrc/<name>.cu (built if missing)."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

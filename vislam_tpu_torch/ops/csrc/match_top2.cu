@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel vislam_tpu/ops/match_kernel.py
 // (match_top2_pallas: _kernel / _make_gated_kernel, _distances,
-// _reduce_top2). For A (K, 128) and B (N, 128) float32 descriptors with
-// validity masks it computes, for every pair,
+// _reduce_top2). For A (K, D) and B (N, D) float32 descriptors, D = 128
+// (SIFT) or 256 (BRIEF), with validity masks it computes, for every pair,
 //   d = max(|a|^2 + |b|^2 - 2 a.b, 0)       (the reference's formula)
 //   d = 1e9 where either row is invalid, or (gated) where the predicted
 //       position of row a lies farther than r from keypoint b
@@ -14,20 +14,24 @@
 //                     tie at min1 therefore gives min2 == min1)
 //   colarg[j]         first row reaching the column minimum
 //
-// What bounds it on an H100: neither bandwidth (2 x 768 x 512 B in) nor the
-// card's peak: 2*K*N*128 = 151 MFLOP at K = N = 768 is microseconds of CUDA
-// core work, so a simple kernel is latency- and occupancy-bound (48 blocks
-// at K = 768). Design: each 128-thread block owns 16 A rows held in shared
-// memory and streams B through shared memory in 32-column tiles (row
-// stride 129 floats, so the 32 lanes of a warp read 32 banks). Each warp
+// What bounds it on an H100: neither bandwidth (2 x 768 x 1 KB in at
+// D = 256) nor the card's peak: 2*K*N*D = 302 MFLOP at K = N = 768, D = 256
+// is microseconds of CUDA core work, so a simple kernel is latency- and
+// occupancy-bound (48 blocks at K = 768). Design: each 128-thread block
+// owns 16 A rows held in shared memory and streams B through shared memory
+// in 32-column tiles (row stride D + 1 floats, so the 32 lanes of a warp
+// read 32 banks). At D = 256 the two buffers take 49 KB, above the 48 KB
+// of static shared memory, so they are dynamic shared memory. Each warp
 // owns 4 rows, each lane one column of the tile; a lane keeps a running
 // (min1, arg1, min2) per row over its columns in increasing order, and the
 // lanes merge by warp shuffles at the end. The column argmin across blocks
 // is one 64-bit atomicMin per column and block on
 // (float bits of d) << 32 | row, exact because d >= 0 and ordered to give
-// the first row on ties; a second small kernel unpacks the row. Float32 in
-// this PR; bf16 inputs and a leading window batch come with the window
-// track matcher. No tensor cores, no TMA: right and simple first.
+// the first row on ties; a second small kernel unpacks the row. BRIEF
+// distances are exact multiples of 1/64, so exact ties are common: every
+// comparison above breaks them to the first index, as the reference does.
+// Float32 only; bf16 inputs and a leading window batch come with the
+// window track matcher. No tensor cores, no TMA: right and simple first.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,7 +39,6 @@
 
 namespace {
 
-constexpr int D = 128;                // descriptor width
 constexpr int ROWS = 16;              // A rows per block
 constexpr int WARPS = 4;
 constexpr int RPW = ROWS / WARPS;     // rows per warp
@@ -49,6 +52,12 @@ __device__ __forceinline__ unsigned long long col_key(float d, int row) {
   return (static_cast<unsigned long long>(bits) << 32) | static_cast<unsigned int>(row);
 }
 
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (ROWS + COLS) * (D + 1);
+}
+
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 match_top2_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                   const uint8_t* __restrict__ ma, const uint8_t* __restrict__ mb,
@@ -56,8 +65,9 @@ match_top2_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                   float r2, int gated, int K, int N,
                   float* __restrict__ min1, float* __restrict__ min2,
                   int* __restrict__ arg1, unsigned long long* __restrict__ colkey) {
-  __shared__ float sA[ROWS][D + 1];
-  __shared__ float sB[COLS][D + 1];
+  extern __shared__ float smem[];
+  float (*sA)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem);                // ROWS
+  float (*sB)[D + 1] = reinterpret_cast<float (*)[D + 1]>(smem + ROWS * (D + 1));  // COLS
   __shared__ float sqA[ROWS], puA[ROWS], pvA[ROWS];
   __shared__ int okA[ROWS];
   __shared__ unsigned long long sCol[COLS];
@@ -164,10 +174,24 @@ __global__ void unpack_colarg_kernel(const unsigned long long* __restrict__ colk
   if (j < N) colarg[j] = static_cast<int>(colkey[j] & 0xffffffffull);
 }
 
+template <int D>
+cudaError_t launch(const float* a, const float* b, const unsigned char* ma,
+                   const unsigned char* mb, const float* uv_pred, const float* uv_b,
+                   float r2, int gated, float* min1, float* min2, int* arg1,
+                   unsigned long long* colkey, int K, int N, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(match_top2_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem_bytes<D>()));
+  if (e != cudaSuccess) return e;
+  match_top2_kernel<D><<<(K + ROWS - 1) / ROWS, THREADS, smem_bytes<D>(), s>>>(
+      a, b, ma, mb, uv_pred, uv_b, r2, gated, K, N, min1, min2, arg1, colkey);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// a (K, 128), b (N, 128) float32; ma (K,), mb (N,) bool as bytes; uv_pred
-// (K, 2), uv_b (N, 2) float32, read only when gated != 0; r2 the squared
+// a (K, D), b (N, D) float32 with D = 128 or 256; ma (K,), mb (N,) bool as
+// bytes; uv_pred (K, 2), uv_b (N, 2) float32, read only when gated != 0; r2 the squared
 // gate radius. Outputs min1, min2 (K,) float32, arg1 (K,) int32, colarg
 // (N,) int32; colkey (N,) is 8-byte scratch. All contiguous device
 // buffers. Launches on `stream` and returns the first CUDA error (0 on
@@ -177,13 +201,15 @@ extern "C" int match_top2(const float* a, const float* b,
                           const float* uv_pred, const float* uv_b, float r2,
                           int gated, float* min1, float* min2, int* arg1,
                           int* colarg, unsigned long long* colkey, int K, int N,
-                          void* stream) {
+                          int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != 128 && D != 256) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaMemsetAsync(colkey, 0xFF, sizeof(unsigned long long) * N, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  match_top2_kernel<<<(K + ROWS - 1) / ROWS, THREADS, 0, s>>>(
-      a, b, ma, mb, uv_pred, uv_b, r2, gated, K, N, min1, min2, arg1, colkey);
-  e = cudaGetLastError();
+  e = D == 128 ? launch<128>(a, b, ma, mb, uv_pred, uv_b, r2, gated, min1, min2, arg1,
+                             colkey, K, N, s)
+               : launch<256>(a, b, ma, mb, uv_pred, uv_b, r2, gated, min1, min2, arg1,
+                             colkey, K, N, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   unpack_colarg_kernel<<<(N + 255) / 256, 256, 0, s>>>(colkey, colarg, N);
   return static_cast<int>(cudaGetLastError());

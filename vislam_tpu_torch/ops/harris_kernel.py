@@ -1,11 +1,23 @@
-"""Shi-Tomasi response + 5x5 NMS: the CUDA kernel's wrapper and its plain
-PyTorch twin (port of `vislam_tpu/ops/harris_kernel.py`, shi_tomasi only).
+"""Detector response + 5x5 NMS, all six families: the CUDA kernel's wrapper
+and its plain PyTorch twins (port of `vislam_tpu/ops/harris_kernel.py`).
 
-`shi_tomasi_nms(img)` takes (H, W) or (B, H, W) float32 and returns
-(nms, resp) of the same shape: resp is the min-eigenvalue response computed
-in float32 (as the reference's TPU kernel does, on the bf16-rounded level),
-nms is resp at its 5x5 local maxima and -inf elsewhere. A CPU tensor runs
-the plain twin; a CUDA tensor launches `csrc/shi_tomasi_nms.cu` or raises.
+`response_nms(img, detector)` takes (H, W) or (B, H, W) float32 and returns
+(nms, resp) of the same shape: resp is the family's response in float32 (as
+the reference's TPU kernel computes it, on the level widened to float32),
+nms is resp at its 5x5 local maxima and -inf elsewhere. `_gradmag2` (the
+contrast-factor statistic of the nonlinear scale space) needs only resp;
+its nms is None. A CPU tensor runs the plain twin; a CUDA tensor launches
+`csrc/response_nms.cu` or raises.
+
+Borders. Where the reference has an XLA response (`DETECTOR_RESPONSES`),
+the port pads stage by stage with zeros as XLA's SAME does (shi_tomasi,
+harris, dog, hessian), and so agrees with it on the whole field. `fast`
+reads zeros outside the image (the TPU kernel's padding; the XLA version
+wraps around with `jnp.roll`), and `_gradmag2`, which exists only in the
+TPU kernel, zero-pads the image once and computes every stage on the
+extended domain, as that kernel does: its outer ring enters the pooled
+contrast quantile. The variants differ only within 7 px of the border,
+where the detector selects nothing (border 12, NMS radius 2).
 """
 
 from __future__ import annotations
@@ -16,86 +28,163 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vislam_tpu_torch.frontend.pyramid import gaussian_blur, scharr_gradients
 from vislam_tpu_torch.ops import build
 
-_SCHARR_X = np.array([[-3.0, 0.0, 3.0], [-10.0, 0.0, 10.0], [-3.0, 0.0, 3.0]],
-                     np.float32) / 32.0
+# Family ids, in the order of the CUDA source's `Family` enum.
+FAMILIES = ("shi_tomasi", "harris", "dog", "hessian", "fast", "_gradmag2")
+
+# Bresenham circle of radius 3 — the FAST-16 sampling ring, as (dv, du).
+_FAST_RING = np.array(
+    [(-3, 0), (-3, 1), (-2, 2), (-1, 3), (0, 3), (1, 3), (2, 2), (3, 1),
+     (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1)],
+    dtype=np.int32,
+)
 
 
-def _gauss_taps(radius: int = 3, sigma: float = 1.5) -> np.ndarray:
-    x = np.arange(-radius, radius + 1, dtype=np.float32)
-    k = np.exp(-0.5 * (x / sigma) ** 2)
-    return k / k.sum()
+def _structure_tensor(img, sigma: float):
+    gx, gy = scharr_gradients(img)
+    return (gaussian_blur(gx * gx, sigma), gaussian_blur(gx * gy, sigma),
+            gaussian_blur(gy * gy, sigma))
 
 
-def shi_tomasi_nms_plain(img, nms_radius: int = 2):
-    """The plain version: (B, H, W) float32 -> (nms, resp). Zero padding
-    per stencil and -inf padding for the NMS window (XLA's SAME)."""
-    x = img[:, None]
-    kx = torch.as_tensor(_SCHARR_X, device=img.device)
-    gx = F.conv2d(x, kx[None, None], padding=1)
-    gy = F.conv2d(x, kx.T.contiguous()[None, None], padding=1)
-    g = torch.as_tensor(_gauss_taps(), device=img.device)
-
-    def blur(f):
-        f = F.conv2d(f, g.reshape(1, 1, 7, 1), padding=(3, 0))
-        return F.conv2d(f, g.reshape(1, 1, 1, 7), padding=(0, 3))
-
-    a, b, c = blur(gx * gx), blur(gx * gy), blur(gy * gy)
+def harris_response(img, k: float = 0.04, sigma: float = 1.5):
+    """Shi-Tomasi min-eigenvalue response (k kept for API parity)."""
+    a, b, c = _structure_tensor(img, sigma)
     half_tr = 0.5 * (a + c)
-    half_df = 0.5 * (a - c)
-    resp = half_tr - torch.sqrt(half_df * half_df + b * b + 1e-12)
-    size = 2 * nms_radius + 1
-    pooled = F.max_pool2d(resp, size, stride=1, padding=nms_radius)
-    nms = torch.where(resp >= pooled, resp, torch.full_like(resp, -torch.inf))
-    return nms[:, 0], resp[:, 0]
+    half_diff = 0.5 * (a - c)
+    return half_tr - torch.sqrt(half_diff * half_diff + b * b + 1e-12)
+
+
+def harris_cornerness(img, k: float = 0.04, sigma: float = 1.5):
+    """Classic Harris det - k tr^2 cornerness."""
+    a, b, c = _structure_tensor(img, sigma)
+    det = a * c - b * b
+    tr = a + c
+    return det - k * tr * tr
+
+
+def dog_response(img, sigma1: float = 1.0, sigma2: float = 1.6):
+    """|G(sigma1, r3) - G(sigma2, r4)| difference-of-Gaussians blobs."""
+    return torch.abs(gaussian_blur(img, sigma1, radius=3) - gaussian_blur(img, sigma2, radius=4))
+
+
+def hessian_response(img, sigma: float = 1.5):
+    """Determinant of the Hessian of G(sigma, r3) by iterated Scharr."""
+    sm = gaussian_blur(img, sigma, radius=3)
+    gx, gy = scharr_gradients(sm)
+    gxx, gxy = scharr_gradients(gx)
+    _, gyy = scharr_gradients(gy)
+    return gxx * gyy - gxy * gxy
+
+
+def _zero_pad(img, p: int):
+    return F.pad(img, (p, p, p, p))
+
+
+def fast_response(img, arc: int = 9):
+    """FAST-16 segment-test score over a contiguous `arc`: max over arc
+    starts of the min over the arc of (ring - centre) (bright) or
+    (centre - ring) (dark); zeros outside the image."""
+    H, W = img.shape[-2:]
+    p = _zero_pad(img, 3)
+    ring = torch.stack([p[..., 3 + dv:3 + dv + H, 3 + du:3 + du + W]
+                        for dv, du in _FAST_RING.tolist()])  # (16, ..., H, W)
+    bright = ring - img[None]
+    dark = -bright
+
+    def arc_score(d):
+        m = d
+        for s in range(1, arc):
+            m = torch.minimum(m, torch.roll(d, -s, dims=0))
+        return torch.max(m, dim=0).values
+
+    return torch.maximum(arc_score(bright), arc_score(dark))
+
+
+def gradmag2_response(img):
+    """|Scharr G(1, r3)|^2 with the image zero-padded once by the 4-px
+    support and every stage on the extended domain (the TPU kernel's
+    `_gradmag2`)."""
+    H, W = img.shape[-2:]
+    gx, gy = scharr_gradients(gaussian_blur(_zero_pad(img, 4), 1.0, radius=3))
+    return (gx * gx + gy * gy)[..., 4:4 + H, 4:4 + W]
+
+
+DETECTOR_RESPONSES = {
+    "shi_tomasi": harris_response,
+    "harris": harris_cornerness,
+    "dog": dog_response,
+    "hessian": hessian_response,
+    "fast": fast_response,
+}
+_PLAIN = {**DETECTOR_RESPONSES, "_gradmag2": gradmag2_response}
+
+
+def nms(resp, radius: int = 2):
+    """resp at its (2r+1)^2 local maxima, -inf elsewhere; pixels outside
+    the image do not take part in a window (XLA's -inf padding)."""
+    size = 2 * radius + 1
+    x = resp.reshape((-1, 1) + resp.shape[-2:])
+    pooled = F.max_pool2d(x, size, stride=1, padding=radius).reshape(resp.shape)
+    return torch.where(resp >= pooled, resp, torch.full_like(resp, -torch.inf))
+
+
+def response_nms_plain(img, detector: str = "shi_tomasi", nms_radius: int = 2):
+    """The plain version: (..., H, W) float32 -> (nms, resp); nms is None
+    for `_gradmag2`."""
+    resp = _PLAIN[detector](img)
+    return (None if detector == "_gradmag2" else nms(resp, nms_radius)), resp
 
 
 def _lib():
-    lib = build.load("shi_tomasi_nms")
-    fn = lib.shi_tomasi_nms
+    fn = build.load("response_nms").response_nms
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def shi_tomasi_nms(img, nms_radius: int = 2):
-    """(..., H, W) float32 image(s) -> (nms, resp), same shape.
+def response_nms(img, detector: str = "shi_tomasi", nms_radius: int = 2):
+    """(..., H, W) float32 image(s) -> (nms, resp), same shape (nms None for
+    `_gradmag2`).
 
     CPU tensor: the plain version. CUDA tensor: the hand-written kernel
-    (5x5 NMS only), one launch per call; anything else raises.
+    (5x5 NMS only), one launch per call, counted per family in
+    `response_nms.launches`; anything else raises.
     """
+    if detector not in FAMILIES:
+        raise ValueError(f"unknown detector {detector!r}; one of {FAMILIES}")
     if img.dim() not in (2, 3):
         raise ValueError(f"expected (H, W) or (B, H, W), got {tuple(img.shape)}")
     x = img if img.dim() == 3 else img[None]
     if img.device.type == "cpu":
-        nms, resp = shi_tomasi_nms_plain(x, nms_radius)
+        nms_, resp = response_nms_plain(x, detector, nms_radius)
     elif img.device.type == "cuda":
         if nms_radius != 2:
             raise NotImplementedError("the CUDA kernel implements 5x5 NMS "
                                       "(nms_radius=2) only")
         if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("shi_tomasi_nms kernel takes contiguous float32, "
+            raise ValueError("response_nms kernel takes contiguous float32, "
                              f"got {x.dtype} contiguous={x.is_contiguous()}")
         B, H, W = x.shape
         if B * H * W >= 2 ** 31 or B > 65535:
             raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's indexing")
-        nms = torch.empty_like(x)
         resp = torch.empty_like(x)
-        fn = _lib()
+        nms_ = None if detector == "_gradmag2" else torch.empty_like(x)
         with torch.cuda.device(x.device):
-            err = fn(x.data_ptr(), nms.data_ptr(), resp.data_ptr(), B, H, W,
-                     torch.cuda.current_stream(x.device).cuda_stream)
+            err = _lib()(FAMILIES.index(detector), x.data_ptr(),
+                         None if nms_ is None else nms_.data_ptr(), resp.data_ptr(),
+                         B, H, W, torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"shi_tomasi_nms launch failed: cudaError {err}")
-        shi_tomasi_nms.launches += 1
+            raise RuntimeError(f"response_nms ({detector}) launch failed: cudaError {err}")
+        response_nms.launches[detector] += 1
     else:
         raise ValueError(f"unsupported device {img.device}")
     if img.dim() == 2:
-        return nms[0], resp[0]
-    return nms, resp
+        return (None if nms_ is None else nms_[0]), resp[0]
+    return nms_, resp
 
 
-shi_tomasi_nms.launches = 0
+response_nms.launches = dict.fromkeys(FAMILIES, 0)

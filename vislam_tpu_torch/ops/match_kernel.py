@@ -3,8 +3,10 @@ PyTorch twin (port of `vislam_tpu/ops/match_kernel.py`).
 
 `match_top2(desc_a, mask_a, desc_b, mask_b[, uv_pred, uv_b, gate_radius])`
 returns (min1 (K,), min2 (K,), arg1 (K,) int32, colarg (N,) int32) over the
-squared-L2 distance matrix max(|a|^2 + |b|^2 - 2 a.b, 0), with invalid pairs
-(and, gated, pairs outside the guided disc) at 1e9; first index wins ties.
+squared-L2 distance matrix max(|a|^2 + |b|^2 - 2 a.b, 0) of D = 128 (SIFT)
+or 256 (BRIEF) wide descriptors, with invalid pairs (and, gated, pairs
+outside the guided disc) at 1e9; the first index wins ties, which are
+exact and common between BRIEF descriptors.
 A CPU tensor runs the plain twin; a CUDA tensor launches
 `csrc/match_top2.cu` or raises.
 """
@@ -47,7 +49,7 @@ def _lib():
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = [p, p, p, p, p, p, ctypes.c_float, ctypes.c_int,
-                       p, p, p, p, p, ctypes.c_int, ctypes.c_int, p]
+                       p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -72,9 +74,9 @@ def match_top2(desc_a, mask_a, desc_b, mask_b, uv_pred=None, uv_b=None,
         raise ValueError(f"unsupported device {desc_a.device}")
     K, D = desc_a.shape
     N = desc_b.shape[0]
-    if D != 128 or K < 1 or N < 1:
-        raise ValueError(f"match_top2 kernel takes (K, 128) x (N, 128) with "
-                         f"K, N >= 1, got {tuple(desc_a.shape)} x {tuple(desc_b.shape)}")
+    if D not in (128, 256) or K < 1 or N < 1:
+        raise ValueError(f"match_top2 kernel takes (K, D) x (N, D) with D in (128, 256) "
+                         f"and K, N >= 1, got {tuple(desc_a.shape)} x {tuple(desc_b.shape)}")
     _check("desc_a", desc_a, (K, D), torch.float32)
     _check("desc_b", desc_b, (N, D), torch.float32)
     _check("mask_a", mask_a, (K,), torch.bool)
@@ -95,7 +97,7 @@ def match_top2(desc_a, mask_a, desc_b, mask_b, uv_pred=None, uv_b=None,
                  uv_b.data_ptr() if gated else None,
                  float(gate_radius) ** 2 if gated else 0.0, int(gated),
                  min1.data_ptr(), min2.data_ptr(), arg1.data_ptr(),
-                 colarg.data_ptr(), colkey.data_ptr(), K, N,
+                 colarg.data_ptr(), colkey.data_ptr(), K, N, D,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"match_top2 launch failed: cudaError {err}")

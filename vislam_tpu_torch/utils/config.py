@@ -15,10 +15,10 @@ import dataclasses
 class FrontendConfig:
     """Detection / description / matching configuration."""
 
-    # shi_tomasi | harris | dog | hessian | fast (the port runs shi_tomasi)
+    # shi_tomasi | harris | dog | hessian | fast
     detector: str = "shi_tomasi"
     image_dtype: str = "bfloat16"   # pyramid dtype; the response runs in f32
-    scale_space: str = "gaussian"   # gaussian | nonlinear (port: gaussian)
+    scale_space: str = "gaussian"   # gaussian | nonlinear (KAZE/AKAZE)
     num_levels: int = 4
     levels_used: int = 2            # K = 512 (level 0) + 256 (level 1) = 768
     grid_rows: int = 8
@@ -28,7 +28,7 @@ class FrontendConfig:
     nms_radius: int = 2
     harris_k: float = 0.04
     min_score: float = 0.02
-    descriptor: str = "sift"        # sift | brief (port: sift)
+    descriptor: str = "sift"        # sift | brief
     patch_size: int = 16
     oriented: bool = False
     ratio_thresh: float = 0.8
