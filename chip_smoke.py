@@ -9,8 +9,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      source, all started together;
   2. kernels: each kernel, and each response family, against its plain
      PyTorch twin on the card at the shapes its path gives it, with the
-     tests' tolerances; both timed with CUDA events (plain, kernel, kernel,
-     plain);
+     tests' tolerances. The match kernel is also held on ragged shapes,
+     all-invalid rows and columns and gates with empty discs;
   3. paths: run_sequence_scan over a 480x752 synthetic sequence with GT
      scale, K = 768, for each frontend the port runs:
        default  SystemConfig() (Shi-Tomasi, SIFT), 60 frames
@@ -26,12 +26,34 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the reference the card must agree with. default and kaze also hold
      ATE < 0.5 m, > 5 keyframes and > 90% of frames solved; the akaze
      analog does not track on this sequence in the reference either, so
-     it has no accuracy bound. The 60-frame paths print where a frame's
-     time goes (wall time per stage, device busy share and kernels by
-     device time from torch.profiler).
+     it has no accuracy bound;
+  4. stage times: for each 60-frame path, where a frame's wall time goes
+     (each stage alone, synchronised);
+  5. kernel times: each kernel of phase 2 at its path's shapes, kernel and
+     twin as 100 back-to-back calls between CUDA events (plain, kernel,
+     kernel, plain); then each call under torch.profiler, whose device
+     launches must be as the source says; then the kernel as the replay
+     of a CUDA graph that captured 100 calls (the device's time without
+     the host's launch cost);
+  6. report: one line per call with its times, its bound (the larger of the function's bytes over
+     the HBM rate and its operations over the peak rate of their type:
+     float32 on the CUDA cores, the match's a.b as 3xTF32 on the tensor
+     cores) and the share of the graph time the bound is;
+  7. traces: for each 60-frame path, torch.profiler over 10 frames: the
+     device busy share and the kernels by device time.
+
+Wall-clock timings come before graph capture and before any profiler
+run in the process: a profiler run was seen to leave the host slower at
+every later launch (the default path fell from ~16 to ~10 frames/s on an
+H100 machine when profiling ran before it).
 
 The last two lines are the kernel table {"kernels": [...]} and
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+{"ok": true, "device": {...}}. In the table, ms, plain_ms, graph_ms and
+bound_ms of a row are sums over the calls one frame makes (the two levels of
+a response family; FED's 4- and 8-step cycles; the ungated and gated match
+at K = 768), launches_per_call lists those calls' device launches, and
+library_ms is null: no single PyTorch call computes any of the three
+functions. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +70,40 @@ import torch
 DEV = "cuda"
 N_FRAMES = 60      # frames of the 60-frame paths
 N_SHORT = 10       # frames of the short paths and of each CPU reference
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
+# dense): HBM bytes/s, float32 flop/s outside the tensor cores, and TF32
+# flop/s on the tensor cores. A kernel's bound is the larger of its
+# function's bytes (inputs read once, outputs written once) over the HBM
+# rate and its operations, each type over its own rate, summed.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12}
+# Float32 operations per output pixel of each response family, counted from
+# the function (vislam_tpu/ops/harris_kernel.py `_response_vmem` and the
+# 5x5 NMS) evaluated as written: an add, subtract, multiply, divide, min,
+# max, abs, sqrt or compare one each, an n-tap filter n multiplies and
+# n - 1 adds (zero taps dropped), negations the formula only undoes not
+# counted. Scharr 8 per direction (smooth 5, difference 3), a 7-tap (9-tap)
+# separable blur 26 (34) per field, the NMS 25 (24 max, 1 compare):
+#   shi_tomasi  16 + 3 products + 3 blurs 78 + eigenvalue 10 + NMS = 132
+#   harris      16 + 3 + 78 + det - 0.04 tr^2 7 + NMS = 129
+#   dog         blurs 26 + 34 + |difference| 2 + NMS = 87
+#   hessian     blur 26 + Scharr 16, of gx 16, of gy (y only) 8 + det 3 + NMS = 94
+#   fast        ring - centre 16 + bright 9-arc score 143 (16 x 8 min, 15 max)
+#               + dark score 144 (the same with min and max swapped, one
+#               negation) + max 1 + NMS = 329
+#   _gradmag2   blur 26 + Scharr 16 + gx^2 + gy^2 3 = 45 (no NMS)
+RESPONSE_FLOP_PER_PX = {"shi_tomasi": 132, "harris": 129, "dog": 87, "hessian": 94,
+                        "fast": 329, "_gradmag2": 45}
+# One FED step (vislam_tpu/ops/fed_kernel.py `_kernel`), the same rule: 5-tap
+# blur 18, Scharr 16, conductivity 6, flux over 4 neighbours 19, update 2.
+FED_FLOP_PER_PX_STEP = 61
+# match_top2, per (row, column) pair besides a.b: the distance 4 (add,
+# multiply, subtract, max), the row top-2 2 and the column minimum 1
+# compares; gated, the disc test 6 more. a.b itself, 2 D per pair, runs at
+# float32 accuracy on the tensor cores only as 3xTF32 (three TF32 products).
+MATCH_FLOP_PER_PAIR = 7
+GATE_FLOP_PER_PAIR = 6
 
 # frontend overrides, frames, whether accuracy is checked, and the launches
 # per frame each kernel (counter name) must show on that path
@@ -101,6 +157,116 @@ def _turns(plain, kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
+    """Mean time of one call replayed from a CUDA graph that captured
+    `calls` calls: the device's time per call without the host's cost
+    between launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def _launches_per_call(fn, expected: int, sessions: int = 5) -> int:
+    """Device launches (kernels and memsets) of one call, from torch.profiler:
+    the most that any of up to `sessions` sessions recorded, stopping once
+    one reaches `expected`. Now and then a short session records no device
+    event at all (PERF.md, chip runs 8 and 12); none records a launch that
+    did not happen, so a kernel launching too often or too rarely still
+    fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = 0
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(1 for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA))
+        if best >= expected:
+            break
+    return best
+
+
+def _measure(label, plain, kernel, nbytes, work, launches) -> dict:
+    """One call to time in phase 5: its bound from the function's bytes and
+    its operations (`work`: (count, type in PEAK_FLOP_PER_S, how counted)
+    terms), and the device launches it must make."""
+    flop_text = " + ".join(f"{text} = {n / 1e6:.1f} MFLOP {kind} / "
+                           f"{PEAK_FLOP_PER_S[kind] / 1e12:.0f} TFLOP/s"
+                           for n, kind, text in work)
+    return dict(label=label, plain=plain, kernel=kernel, nbytes=nbytes, flop_text=flop_text,
+                expected=launches, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_ms=sum(n / PEAK_FLOP_PER_S[kind] for n, kind, _ in work) * 1e3)
+
+
+def _row(name, counter, source, replaces, max_abs_err, measures, extra=()) -> dict:
+    """A kernel table row over the calls one frame makes (`extra`: other
+    shapes, timed and printed only), timed in phases 5 and 6."""
+    return dict(name=name, counter=counter, route="cuda", source=source, replaces=replaces,
+                max_abs_err=max_abs_err, library_ms=None, measures=measures, extra=list(extra))
+
+
+def _calls(rows) -> list:
+    return [m for row in rows for m in row["measures"] + row["extra"]]
+
+
+def timing_phase(rows) -> None:
+    """Every call back-to-back in turns with its twin; then its device
+    launches under torch.profiler (fails unless as expected); then every
+    call replayed from a CUDA graph. The profiler runs after the wall-clock
+    times and before any graph capture (PERF.md, chip runs 7-8 and 12)."""
+    for m in _calls(rows):
+        m["ms"], m["plain_ms"] = _turns(m["plain"], m["kernel"])
+    for m in _calls(rows):
+        m["launches"] = _launches_per_call(m["kernel"], m["expected"])
+        if m["launches"] != m["expected"]:
+            _fail(f"{m['label']}: {m['launches']} device launches per call, expected "
+                  f"{m['expected']}")
+    for m in _calls(rows):
+        m["graph_ms"] = _graph_ms(m["kernel"])
+
+
+def report_phase(rows) -> None:
+    """Every call's line, and one frame's calls summed into each row."""
+    for m in _calls(rows):
+        n = m["launches"]
+        bound = max(m["bytes_ms"], m["ops_ms"])
+        print(f"kernel {m['label']}: back-to-back {m['ms'] * 1e3:.2f} us, graph "
+              f"{m['graph_ms'] * 1e3:.2f} us, plain {m['plain_ms'] * 1e3:.1f} us; {n} launches "
+              f"per call; bound {bound * 1e3:.3f} us = max({m['nbytes'] / 1e6:.3f} MB / 3.35 TB/s, "
+              f"{m['flop_text']}), "
+              f"{'bytes' if m['bytes_ms'] >= m['ops_ms'] else 'operations'}; "
+              f"{bound / m['graph_ms']:.1%} of the graph time", flush=True)
+    for row in rows:
+        ms = row.pop("measures")
+        row.pop("extra")
+        bytes_ms = sum(m["bytes_ms"] for m in ms)
+        ops_ms = sum(m["ops_ms"] for m in ms)
+        row.update(ms=sum(m["ms"] for m in ms), plain_ms=sum(m["plain_ms"] for m in ms),
+                   graph_ms=sum(m["graph_ms"] for m in ms),
+                   bound_ms=sum(max(m["bytes_ms"], m["ops_ms"]) for m in ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   launches_per_call=[m["launches"] for m in ms])
+
+
 def _counters():
     """name -> (object whose `launches` holds the count, key or None)."""
     from vislam_tpu_torch.ops.fed_kernel import fed_evolve
@@ -149,7 +315,8 @@ def _response_rows(seq):
               "fast": nonlin, "_gradmag2": [img]}
     rows = []
     for fam, levels in fields.items():
-        err_max = t_k = t_p = 0.0
+        err_max = 0.0
+        measures = []
         for lv in levels:
             k_nms, k_resp = response_nms(lv, fam)
             p_nms, p_resp = response_nms_plain(lv[None], fam)
@@ -165,16 +332,19 @@ def _response_rows(seq):
             if not err / scale < 1e-4 or not agree > 0.999:
                 _fail(f"response_nms {fam} disagrees at {tuple(lv.shape)}: max abs err "
                       f"{err} (scale {scale}), nms agreement {agree}")
-            tk, tp = _turns(lambda: response_nms_plain(lv[None], fam),
-                            lambda: response_nms(lv, fam))
-            err_max, t_k, t_p = max(err_max, err), t_k + tk, t_p + tp
             print(f"kernel response_nms {fam} {tuple(lv.shape)}: max_abs_err {err:.3e} "
-                  f"(scale {scale:.3e}), nms agreement {agree:.6f}, kernel {tk * 1e3:.1f} us, "
-                  f"plain {tp * 1e3:.1f} us", flush=True)
-        rows.append(dict(name=f"response_nms:{fam}", counter=fam, route="cuda",
-                         source="vislam_tpu_torch/ops/csrc/response_nms.cu",
-                         replaces="vislam_tpu/ops/harris_kernel.py:193",
-                         max_abs_err=err_max, ms=t_k, plain_ms=t_p))
+                  f"(scale {scale:.3e}), nms agreement {agree:.6f}", flush=True)
+            px = lv.numel()
+            writes = 1 if fam == "_gradmag2" else 2
+            measures.append(_measure(
+                f"response_nms {fam} {tuple(lv.shape)}",
+                lambda lv=lv, fam=fam: response_nms_plain(lv[None], fam),
+                lambda lv=lv, fam=fam: response_nms(lv, fam), 4 * px * (1 + writes),
+                [(RESPONSE_FLOP_PER_PX[fam] * px, "fp32",
+                  f"{RESPONSE_FLOP_PER_PX[fam]} flop/px x {px} px")], 1))
+            err_max = max(err_max, err)
+        rows.append(_row(f"response_nms:{fam}", fam, "vislam_tpu_torch/ops/csrc/response_nms.cu",
+                         "vislam_tpu/ops/harris_kernel.py:193", err_max, measures))
     return rows
 
 
@@ -188,7 +358,8 @@ def _fed_row(seq):
     img = torch.as_tensor(seq["images"][1]).to(DEV, torch.bfloat16)
     k = contrast_factor(img)
     L = gaussian_blur(img, 1.0).float().contiguous()
-    err_max = t_k = t_p = 0.0
+    err_max = 0.0
+    measures = []
     for T in (0.78, 3.84):
         taus = fed_tau_steps(T)
         out = fed_evolve(L, k, taus)
@@ -199,82 +370,117 @@ def _fed_row(seq):
         # stable diffusion on a 0-255 field: 1e-3 absolute is ~4e-6 relative.
         if not err < 1e-3:
             _fail(f"fed_evolve n={len(taus)} disagrees: max abs err {err}")
-        tk, tp = _turns(lambda: fed_evolve_plain(L[None], k.reshape(1), taus),
-                        lambda: fed_evolve(L, k, taus))
-        err_max, t_k, t_p = max(err_max, err), t_k + tk, t_p + tp
         print(f"kernel fed_evolve n={len(taus)} {tuple(L.shape)} k={k.item():.4f}: max_abs_err "
-              f"{err:.3e}, kernel {tk * 1e3:.1f} us, plain {tp * 1e3:.1f} us", flush=True)
+              f"{err:.3e}", flush=True)
+        n, px = len(taus), L.numel()
+        # One launch per step; the function reads L and k and writes the field.
+        measures.append(_measure(
+            f"fed_evolve n={n} {tuple(L.shape)}",
+            lambda L=L, taus=taus: fed_evolve_plain(L[None], k.reshape(1), taus),
+            lambda L=L, taus=taus: fed_evolve(L, k, taus),
+            8 * px + 4, [(n * FED_FLOP_PER_PX_STEP * px, "fp32",
+                          f"{n} steps x {FED_FLOP_PER_PX_STEP} flop/px x {px} px")], n))
+        err_max = max(err_max, err)
         L = out
-    return dict(name="fed_evolve", counter="fed_evolve", route="cuda",
-                source="vislam_tpu_torch/ops/csrc/fed_evolve.cu",
-                replaces="vislam_tpu/ops/fed_kernel.py:83", max_abs_err=err_max, ms=t_k,
-                plain_ms=t_p)
+    return _row("fed_evolve", "fed_evolve", "vislam_tpu_torch/ops/csrc/fed_evolve.cu",
+                "vislam_tpu/ops/fed_kernel.py:83", err_max, measures)
+
+
+def _match_check(label, D, k, p, mask_b) -> float:
+    """Kernel outputs k against the plain twin's p on the same inputs;
+    returns the largest distance error."""
+    err = max((k[0] - p[0]).abs().max().item(), (k[1] - p[1]).abs().max().item())
+    empty = p[0] >= 5e8   # rows with no candidate: 1e9 throughout, arg1 = 0 on both sides
+    if D == 128:
+        # SIFT: float32 dot products summed in another order (rtol 1e-4);
+        # indices exact away from near-ties.
+        for name, a, b in (("min1", k[0], p[0]), ("min2", k[1], p[1])):
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+                _fail(f"match_top2 {name} disagrees ({label}): max abs err "
+                      f"{(a - b).abs().max().item()}")
+        rows_ok = empty | ((p[1] - p[0]).abs() > 1e-5 * p[0].clamp(min=1e-6))
+        cols_ok, col_need = mask_b, 0.99
+    else:
+        # BRIEF: every distance is an exact multiple of 1/64, so distances
+        # are exact and indices agree on every row and column, exact ties
+        # included.
+        if err != 0.0:
+            _fail(f"match_top2 D=256 distances not exact ({label}): {err}")
+        rows_ok = torch.ones_like(p[2], dtype=torch.bool)
+        cols_ok, col_need = torch.ones_like(mask_b), 1.0
+    arg_ok = (k[2] == p[2])[rows_ok].float().mean().item() if rows_ok.any() else 1.0
+    col_ok = (k[3] == p[3])[cols_ok].float().mean().item() if cols_ok.any() else 1.0
+    # A masked-out column holds 1e9 in every row: its argmin is row 0.
+    dead_ok = torch.equal(k[3][~mask_b], p[3][~mask_b])
+    ties = int(((p[1] == p[0]) & ~empty).sum().item())
+    print(f"kernel match_top2 {label}: max_abs_err {err:.3e}, arg1 exact {arg_ok:.4f} of "
+          f"{int(rows_ok.sum())} rows ({ties} tied at min1, {int(empty.sum())} with no candidate), "
+          f"colarg {col_ok:.4f}", flush=True)
+    if arg_ok < 1.0 or col_ok < col_need or not dead_ok:
+        _fail(f"match_top2 indices disagree ({label}): arg1 {arg_ok}, colarg {col_ok}, "
+              f"masked-out columns equal {dead_ok}")
+    return err
 
 
 def _match_rows(seq, gate_px):
-    """match_top2 on real descriptors of two frames: SIFT-128 at K = 768
-    and 512, BRIEF-256 at K = 768; ungated and gated at the rescue's disc."""
+    """match_top2 on real descriptors of two frames: SIFT-128 and BRIEF-256
+    at K = 768 (2 levels) and 512 (1 level), ungated and gated at the
+    rescue's disc, timed; then on cuts of the K = 768 sets: ragged shapes,
+    all-invalid rows and columns, discs that hold no candidate, no valid
+    row at all."""
     from vislam_tpu_torch.frontend.features import extract_features
     from vislam_tpu_torch.ops.match_kernel import match_top2, match_top2_plain
     from vislam_tpu_torch.utils.config import FrontendConfig
 
+    frontends = {128: dict(), 256: dict(scale_space="nonlinear", detector="fast",
+                                        descriptor="brief")}
     rows = []
-    for D, cfgs in ((128, [FrontendConfig(levels_used=2), FrontendConfig(levels_used=1)]),
-                    (256, [FrontendConfig(scale_space="nonlinear", detector="fast",
-                                          descriptor="brief")])):
+    for D, fe in frontends.items():
         err_max = 0.0
-        t_k = t_p = None
-        for fcfg in cfgs:
+        measures, extra = [], []   # the K = 768 calls of a frame; K = 512
+        for levels in (2, 1):
+            fcfg = FrontendConfig(levels_used=levels, **fe)
             fa = extract_features(torch.as_tensor(seq["images"][0]).to(DEV, torch.float32), fcfg)
             fb = extract_features(torch.as_tensor(seq["images"][1]).to(DEV, torch.float32), fcfg)
-            K = fa.uv.shape[0]
-            for gated in (False, True):
-                gate = dict(uv_pred=fa.uv.contiguous(), uv_b=fb.uv.contiguous(),
-                            gate_radius=gate_px) if gated else {}
-                args = (fa.desc.contiguous(), fa.mask.contiguous(), fb.desc.contiguous(),
-                        fb.mask.contiguous())
+            a, ma, b, mb = (x.contiguous() for x in (fa.desc, fa.mask, fb.desc, fb.mask))
+            uva, uvb = fa.uv.contiguous(), fb.uv.contiguous()
+            K, N = a.shape[0], b.shape[0]
+            cases = [(f"K={K} N={N} D={D} gated={gated}", (a, ma, b, mb),
+                      dict(uv_pred=uva, uv_b=uvb, gate_radius=gate_px) if gated else {}, True)
+                     for gated in (False, True)]
+            if K == 768:
+                far = uva + 1000.0 * (torch.arange(K, device=DEV) % 3 == 0)[:, None]
+                cases += [
+                    (f"ragged K=700 N=333 D={D} gated", (a[:700], ma[:700], b[:333], mb[:333]),
+                     dict(uv_pred=uva[:700], uv_b=uvb[:333], gate_radius=gate_px), False),
+                    (f"ragged K=700 N=333 D={D}", (a[:700], ma[:700], b[:333], mb[:333]), {},
+                     False),
+                    (f"ragged K=1 N={N} D={D}", (a[:1], ma[:1], b, mb), {}, False),
+                    (f"every 5th row and 7th column invalid K={K} D={D}",
+                     (a, ma & (torch.arange(K, device=DEV) % 5 != 0), b,
+                      mb & (torch.arange(N, device=DEV) % 7 != 0)), {}, False),
+                    (f"every 3rd disc empty K={K} D={D}", (a, ma, b, mb),
+                     dict(uv_pred=far.contiguous(), uv_b=uvb, gate_radius=gate_px), False),
+                    (f"no valid row K={K} D={D}", (a, torch.zeros_like(ma), b, mb), {}, False),
+                ]
+            for label, args, gate, timed in cases:
                 k = match_top2(*args, **gate)
                 p = match_top2_plain(*args, **gate)
                 torch.cuda.synchronize()
-                err = max((k[0] - p[0]).abs().max().item(), (k[1] - p[1]).abs().max().item())
-                if D == 128:
-                    # SIFT: float32 dot products summed in another order
-                    # (rtol 1e-4); indices exact away from near-ties.
-                    for name, a, b in (("min1", k[0], p[0]), ("min2", k[1], p[1])):
-                        if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
-                            _fail(f"match_top2 {name} disagrees (K={K}, D={D}, gated={gated}): "
-                                  f"max abs err {(a - b).abs().max().item()}")
-                    has = p[0] < 5e8
-                    rows_ok = has & ((p[1] - p[0]).abs() > 1e-5 * p[0].clamp(min=1e-6))
-                    cols_ok = fb.mask
-                else:
-                    # BRIEF: every distance is an exact multiple of 1/64, so
-                    # distances are exact and indices agree on every row and
-                    # column, exact ties included.
-                    if err != 0.0:
-                        _fail(f"match_top2 D=256 distances not exact (gated={gated}): {err}")
-                    rows_ok = torch.ones_like(fa.mask)
-                    cols_ok = torch.ones_like(fb.mask)
-                arg_ok = (k[2] == p[2])[rows_ok].float().mean().item()
-                col_ok = (k[3] == p[3])[cols_ok].float().mean().item()
-                ties = int(((p[1] == p[0]) & (p[0] < 5e8)).sum().item())
-                if arg_ok < 1.0 or col_ok < (0.99 if D == 128 else 1.0):
-                    _fail(f"match_top2 indices disagree (K={K}, D={D}, gated={gated}): arg1 "
-                          f"{arg_ok}, colarg {col_ok}")
-                tk, tp = _turns(lambda: match_top2_plain(*args, **gate),
-                                lambda: match_top2(*args, **gate))
-                if K == 768:
-                    t_k = tk if t_k is None else t_k + tk
-                    t_p = tp if t_p is None else t_p + tp
-                err_max = max(err_max, err)
-                print(f"kernel match_top2 K={K} D={D} gated={gated}: max_abs_err {err:.3e}, "
-                      f"arg1 exact {arg_ok:.4f} of {int(rows_ok.sum())} rows ({ties} tied at "
-                      f"min1), colarg {col_ok:.4f}, kernel {tk * 1e3:.1f} us, plain "
-                      f"{tp * 1e3:.1f} us", flush=True)
-        rows.append(dict(name=f"match_top2:d{D}", counter="match_top2", route="cuda",
-                         source="vislam_tpu_torch/ops/csrc/match_top2.cu",
-                         replaces="vislam_tpu/ops/match_kernel.py:126", max_abs_err=err_max,
-                         ms=t_k, plain_ms=t_p))
+                err_max = max(err_max, _match_check(label, D, k, p, args[3]))
+                if not timed:
+                    continue
+                Ka, Nb = args[0].shape[0], args[2].shape[0]
+                nbytes = (4 * D + 1 + (8 if gate else 0)) * (Ka + Nb) + 12 * Ka + 4 * Nb
+                per_pair = MATCH_FLOP_PER_PAIR + (GATE_FLOP_PER_PAIR if gate else 0)
+                (measures if K == 768 else extra).append(_measure(
+                    f"match_top2 {label}", lambda a=args, g=gate: match_top2_plain(*a, **g),
+                    lambda a=args, g=gate: match_top2(*a, **g), nbytes,
+                    [(3 * 2 * Ka * Nb * D, "tf32", f"3xTF32 a.b 3 x 2 x {Ka} x {Nb} x {D}"),
+                     (per_pair * Ka * Nb, "fp32", f"{per_pair} x {Ka} x {Nb} per pair")], 2))
+        rows.append(_row(f"match_top2:d{D}", "match_top2",
+                         "vislam_tpu_torch/ops/csrc/match_top2.cu",
+                         "vislam_tpu/ops/match_kernel.py:126", err_max, measures, extra))
     return rows
 
 
@@ -288,13 +494,8 @@ def kernel_phase(seq, cfg_default):
             + _match_rows(seq, cfg_default.frontend.guided_fallback_px))
 
 
-def profile_path(name, eng, state, inputs):
-    """Where a frame's time goes: wall time per stage (each stage alone,
-    synchronised), then a torch.profiler pass over 10 frames for the device
-    busy share and the kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from vislam_tpu_torch.engine import run_sequence_scan
+def stage_times(name, eng, state, inputs):
+    """Where a frame's wall time goes: each stage alone, synchronised."""
     from vislam_tpu_torch.engine.engine import frame_generator
     from vislam_tpu_torch.frontend.detect import detect_keypoints
     from vislam_tpu_torch.frontend.features import extract_features
@@ -348,7 +549,16 @@ def profile_path(name, eng, state, inputs):
             rays, rays.roll(1, 0), R, kf.mask, uv_i=kf.uv, dispersion_pow=1.25, noise=noise),
         "whole step": lambda: eng.step(state, img, imu, dt, 0.1),
     }
-    lines = [f"{stage}: {wall_ms(fn):.2f} ms wall" for stage, fn in stages.items()]
+    for stage, fn in stages.items():
+        print(f"profile {name}: {stage}: {wall_ms(fn):.2f} ms wall", flush=True)
+
+
+def trace_path(name, eng, state, inputs):
+    """A torch.profiler pass over 10 frames: the device busy share and the
+    kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vislam_tpu_torch.engine import run_sequence_scan
 
     sub = inputs._replace(images=inputs.images[:10], imu=inputs.imu[:10],
                           imu_dt=inputs.imu_dt[:10], gt_pos=inputs.gt_pos[:10])
@@ -364,11 +574,10 @@ def profile_path(name, eng, state, inputs):
     # launched as well, so summing every row counts each kernel twice.
     dev_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                  for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
-    lines.append(f"profiled 10 frames: wall {wall * 1e3:.1f} ms, device busy "
-                 f"{dev_us / 1e3:.1f} ms ({dev_us / 1e6 / wall:.3f} of wall), "
-                 f"{sum(e.count for e in events if e.key.startswith('cudaLaunchKernel'))} "
-                 f"kernel launches")
-    print(f"profile {name}: " + f"\nprofile {name}: ".join(lines), flush=True)
+    print(f"profile {name}: profiled 10 frames: wall {wall * 1e3:.1f} ms, device busy "
+          f"{dev_us / 1e3:.1f} ms ({dev_us / 1e6 / wall:.3f} of wall), "
+          f"{sum(e.count for e in events if e.key.startswith('cudaLaunchKernel'))} "
+          f"kernel launches", flush=True)
     print(events.table(sort_by="self_cuda_time_total", row_limit=15), flush=True)
 
 
@@ -395,8 +604,10 @@ def _host_syncs(eng, state, inputs) -> list:
     return syncs
 
 
-def path_phase(name, seq) -> dict:
-    """Drive one frontend's path; returns its launch counts."""
+def path_phase(name, seq):
+    """Drive one frontend's path; returns its launch counts and, for a
+    60-frame path, what phases 4 and 7 profile (engine, state, inputs; else
+    None)."""
     from vislam_tpu_torch.engine import VIOEngine, make_sequence_inputs, run_sequence_scan
     from vislam_tpu_torch.engine.engine import frame_generator
     from vislam_tpu_torch.eval import ate_rmse
@@ -472,9 +683,6 @@ def path_phase(name, seq) -> dict:
     if syncs:
         _fail(f"{name}: {len(syncs)} host syncs inside a step")
 
-    if N == N_FRAMES:
-        profile_path(name, eng, state, inputs)
-
     # Reference on a small input: the first frames again on the CPU (the
     # plain twins), with the same random draws on both devices.
     n_ref = N_SHORT
@@ -503,7 +711,7 @@ def path_phase(name, seq) -> dict:
     # decision or a centimetre of position cannot.
     if not torch.equal(kf_g, kf_c) or dp > 1e-2 or dm > 5:
         _fail(f"{name}: the card's run disagrees with the CPU plain twins")
-    return launches
+    return launches, ((eng, state, inputs) if N == N_FRAMES else None)
 
 
 def main() -> None:
@@ -544,14 +752,27 @@ def main() -> None:
                 "response_nms:fast": "akaze", "response_nms:_gradmag2": "kaze",
                 "fed_evolve": "kaze", "match_top2:d128": "default",
                 "match_top2:d256": "akaze"}
-    launches = {name: path_phase(name, seq) for name in PATHS}
+    launches, profiled = {}, {}
+    for name in PATHS:
+        launches[name], ctx = path_phase(name, seq)
+        if ctx is not None:
+            profiled[name] = ctx
+    # The order of what follows: see the module's docstring.
+    for name, ctx in profiled.items():
+        stage_times(name, *ctx)
+    timing_phase(rows)
+    report_phase(rows)
+    for name, ctx in profiled.items():
+        trace_path(name, *ctx)
     for row in rows:
         row["launches"] = launches[row_path[row["name"]]][row["counter"]]
 
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [
-        {k: row[k] for k in ("name", "route", "source", "replaces", "launches",
-                             "max_abs_err", "ms", "plain_ms")} for row in rows]}), flush=True)
+        {**{k: row[k] for k in ("name", "route", "source", "replaces", "launches",
+                                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "graph_ms", "launches_per_call")},
+         "bound_us": row["bound_ms"] * 1e3} for row in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

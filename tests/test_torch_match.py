@@ -8,7 +8,10 @@ rtol 1e-4 (float32 dot products summed in another order), indices and
 masks exact away from near-ties (rows whose best and second-best distance
 differ by less than 1e-5 relative could legitimately swap). BRIEF distances
 are exact multiples of 1/64, so there distances and indices are exact on
-every row and column, the many exact ties included.
+every row and column, the many exact ties included. A host model of the
+kernel's tiled reduction (its tiles and random ones, merged in random
+orders) is held against the twin and the Pallas kernel on tie-heavy,
+ragged, masked and gated-out inputs.
 """
 
 import jax.numpy as jnp
@@ -205,6 +208,132 @@ def test_top2_twin_d256_exact_with_ties(gated):
     np.testing.assert_array_equal(h.numpy() / 64.0, t_min1[ma & (p_min1 < 5e8)])
     np.testing.assert_array_equal(
         h.numpy(), np.asarray(jbin.hamming_from_l2sq(jnp.asarray(p_min1[ma & (p_min1 < 5e8)]))))
+
+
+# The tiled kernel's reduction (csrc/match_top2.cu) rests on two merges that
+# are exact in any order over disjoint sets: a row's Top2 (min1, its first
+# column, min2) and a column's 64-bit key (distance bits << 32 | row, whose
+# minimum is the first row reaching the minimum distance). The host model
+# below reduces a distance matrix over a given split into tiles: each
+# tile's row Top2 from its single entries in a random order, the tiles'
+# partials in a random order, and the column keys' minimum per tile, then
+# across tiles. The kernel's tiles are BM x BN = 32 x 64.
+BM, BN = 32, 64
+_IDENT = (np.inf, np.inf, np.iinfo(np.int32).max)
+
+
+def _merge(p, q):
+    """The kernel's Top2 merge of two disjoint column sets, elementwise:
+    the smaller (m1, first column) wins, m2 the smallest of the rest."""
+    take_q = (q[0] < p[0]) | ((q[0] == p[0]) & (q[2] < p[2]))
+    return (np.where(take_q, q[0], p[0]),
+            np.where(take_q, np.minimum(p[0], q[1]), np.minimum(p[1], q[0])),
+            np.where(take_q, q[2], p[2]))
+
+
+def _edges(n, rng, step=None):
+    """Tile edges over n items: every `step`, else up to 11 random cuts."""
+    if step is not None:
+        return np.r_[np.arange(0, n, step), n]
+    cuts = rng.choice(np.arange(1, n), size=min(n - 1, 11), replace=False) if n > 1 else []
+    return np.r_[0, np.sort(cuts), n].astype(int)
+
+
+def _tiled_top2(d, row_edges, col_edges, rng):
+    """(min1, min2, arg1, colarg) of the (K, N) float32 matrix d, reduced
+    over the tiles the edges cut, in random orders."""
+    K, N = d.shape
+    tiles = []
+    for c0, c1 in zip(col_edges[:-1], col_edges[1:]):
+        part = tuple(np.full(K, v) for v in _IDENT)
+        for j in c0 + rng.permutation(c1 - c0):
+            part = _merge(part, (d[:, j], np.full(K, np.inf), np.full(K, j)))
+        tiles.append(part)
+    m = tuple(np.full(K, v) for v in _IDENT)
+    for i in rng.permutation(len(tiles)):
+        m = _merge(m, tiles[i])
+    bits = (d.view(np.uint32) & np.uint32(0x7fffffff)).astype(np.uint64)
+    key = (bits << np.uint64(32)) | np.arange(K, dtype=np.uint64)[:, None]
+    colkey = np.full(N, np.iinfo(np.uint64).max, np.uint64)
+    for i in rng.permutation(len(row_edges) - 1):
+        colkey = np.minimum(colkey, key[row_edges[i]:row_edges[i + 1]].min(axis=0))
+    return (m[0].astype(np.float32), np.minimum(m[1], np.float32(1e9)).astype(np.float32),
+            m[2].astype(np.int32), (colkey & np.uint64(0xffffffff)).astype(np.int32))
+
+
+def _tile_case(case):
+    """Inputs of one tiled-reduction case: BRIEF-like (exact, tie-heavy)
+    or SIFT-like descriptors, cut to K x N, with masked or gated-out rows."""
+    if case.startswith("sift"):
+        a, b, ma, mb, uv_a, uv_b = _pair(512, seed=3)
+        return a, b, ma, mb, dict(uv_pred=uv_a, uv_b=uv_b, gate_radius=GATE)
+    a, b, ma, mb, uv_a, uv_b = _brief_pair(seed=4)
+    gate = {}
+    if case == "brief_gated":
+        gate = dict(uv_pred=uv_a, uv_b=uv_b, gate_radius=GATE)
+    elif case.startswith("brief_ragged"):
+        K, N = (int(x) for x in case.split("_")[2:])
+        a, ma, uv_a, b, mb, uv_b = a[:K], ma[:K], uv_a[:K], b[:N], mb[:N], uv_b[:N]
+    elif case == "brief_masked":                 # every 5th row, 7th column invalid
+        ma = ma & (np.arange(768) % 5 != 0)
+        mb = mb & (np.arange(768) % 7 != 0)
+    elif case == "brief_no_valid_row":
+        ma = np.zeros_like(ma)
+    elif case == "brief_gated_out":              # every 3rd disc holds no candidate
+        far = uv_a + 1000.0 * (np.arange(768) % 3 == 0)[:, None].astype(np.float32)
+        gate = dict(uv_pred=far.astype(np.float32), uv_b=uv_b, gate_radius=GATE)
+    return a, b, ma, mb, gate
+
+
+@pytest.mark.parametrize("case", ["brief", "brief_gated", "brief_ragged_700_700",
+                                  "brief_ragged_700_333", "brief_ragged_1_768",
+                                  "brief_ragged_33_65", "brief_ragged_768_1", "brief_masked",
+                                  "brief_no_valid_row", "brief_gated_out", "sift_gated"])
+def test_tiled_reduction_matches_twin_and_pallas(case):
+    """The kernel's tiled reduction (the host model above) on the distances
+    of the plain twin, over the kernel's 32 x 64 tiles and over a random
+    split, each in random merge orders: identical to the twin's outputs,
+    and to the Pallas kernel's in interpret mode where that takes the shape
+    (K = N): exactly on BRIEF, within the tests' tolerance on SIFT."""
+    a, b, ma, mb, gate = _tile_case(case)
+    ta, tb = _t(a), _t(b)
+    d = torch.clamp((ta * ta).sum(-1, keepdim=True) + (tb * tb).sum(-1)[None]
+                    - 2.0 * (ta @ tb.T), min=0.0)
+    d = torch.where(_t(ma)[:, None] & _t(mb)[None], d, torch.full_like(d, 1e9))
+    if gate:
+        du = _t(gate["uv_pred"])[:, None, 0] - _t(gate["uv_b"])[None, :, 0]
+        dv = _t(gate["uv_pred"])[:, None, 1] - _t(gate["uv_b"])[None, :, 1]
+        d = torch.where(du * du + dv * dv <= GATE * GATE, d, torch.full_like(d, 1e9))
+    twin = [x.numpy() for x in match_top2_plain(
+        ta, _t(ma), tb, _t(mb), **{k: (_t(v) if k != "gate_radius" else v)
+                                   for k, v in gate.items()})]
+    K, N = d.shape
+    rng = np.random.default_rng(len(case))
+    for steps in ((BM, BN), (None, None)):
+        tiled = _tiled_top2(d.numpy(), _edges(K, rng, steps[0]), _edges(N, rng, steps[1]), rng)
+        for x, y in zip(tiled, twin):
+            np.testing.assert_array_equal(x, y)
+    if case in ("brief", "brief_gated"):
+        ties = (twin[0] == twin[1]) & (twin[0] < 5e8)
+        assert ties.sum() >= 8, ties.sum()
+    if case == "brief_no_valid_row":
+        np.testing.assert_array_equal(tiled[2], 0)
+        np.testing.assert_array_equal(tiled[3], 0)
+    if a.shape[0] != b.shape[0]:
+        return
+    p = [np.asarray(x) for x in match_top2_pallas(
+        jnp.asarray(a), jnp.asarray(ma), jnp.asarray(b), jnp.asarray(mb), interpret=True,
+        **{k: (jnp.asarray(v) if k != "gate_radius" else v) for k, v in gate.items()})]
+    if case.startswith("brief"):
+        for x, y in zip(tiled, p):
+            np.testing.assert_array_equal(x, y)
+    else:
+        np.testing.assert_allclose(tiled[0], p[0], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(tiled[1], p[1], rtol=1e-4, atol=1e-5)
+        ok = (p[0] < 5e8) & _untied(p[0], p[1])
+        assert ok.sum() > 100
+        np.testing.assert_array_equal(tiled[2][ok], p[2][ok])
+        np.testing.assert_array_equal(tiled[3][mb], p[3][mb])
 
 
 def test_match_descriptors_d256_matches_reference():

@@ -6,8 +6,9 @@ shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<name>-<hash>.so ops/csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and a stale library is never loaded. `build_all` starts one
+The file name carries a hash of the source, the headers beside it
+(`csrc/*.cuh`) and the flags, so an edited source or header rebuilds and a
+stale library is never loaded. `build_all` starts one
 nvcc per missing source, all at once. A plain C interface
 (no PyTorch headers) keeps the build to seconds. A failed build raises with
 nvcc's output; nothing falls back.
@@ -16,6 +17,7 @@ nvcc's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -47,8 +49,10 @@ def nvcc_path() -> str:
 def _target(name: str):
     """(source path, library path) for csrc/<name>.cu."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        text = f.read()
+    text = b""
+    for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            text += f.read()
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, os.path.join(_BUILD, f"{name}-{tag}.so")
 

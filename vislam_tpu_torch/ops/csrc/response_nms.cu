@@ -29,11 +29,16 @@
 // chain + NMS 2) in shared memory and runs the whole chain there. The
 // largest family (the structure tensor, three staged fields) needs 52 KB,
 // above the 48 KB of static shared memory, so the buffers are dynamic
-// shared memory sized per family. The batch rides the grid's z. Right and
-// simple first: no vectorised loads, no register tiling.
+// shared memory sized per family (the limit set once per family and
+// device). The batch rides the grid's z. Right and simple first: no
+// vectorised loads, no register tiling.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
+
+#include "smem_once.cuh"
 
 namespace {
 
@@ -370,9 +375,9 @@ template <int FAM>
 int launch(const float* img, float* nms, float* resp, int B, int H, int W,
            cudaStream_t s) {
   constexpr size_t bytes = sizeof(float) * smem_floats<FAM>();
-  cudaError_t e = cudaFuncSetAttribute(response_nms_kernel<FAM>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(bytes));
+  static std::atomic<unsigned long long> configured{0};
+  const cudaError_t e = set_smem_once(
+      configured, reinterpret_cast<const void*>(response_nms_kernel<FAM>), bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
   response_nms_kernel<FAM><<<grid, THREADS, bytes, s>>>(img, nms, resp, H, W);

@@ -8,12 +8,14 @@ or 256 (BRIEF) wide descriptors, with invalid pairs (and, gated, pairs
 outside the guided disc) at 1e9; the first index wins ties, which are
 exact and common between BRIEF descriptors.
 A CPU tensor runs the plain twin; a CUDA tensor launches
-`csrc/match_top2.cu` or raises.
+`csrc/match_top2.cu` (two launches per call: a reset of its scratch, then
+the tiled tensor-core kernel) or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,13 +47,21 @@ def match_top2_plain(desc_a, mask_a, desc_b, mask_b, uv_pred=None, uv_b=None,
 
 
 def _lib():
-    fn = build.load("match_top2").match_top2
+    lib = build.load("match_top2")
+    fn = lib.match_top2
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_float, ctypes.c_int,
-                       p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_float, ctypes.c_int, p, p, p, p, p,
+                       ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.match_top2_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.match_top2_scratch_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(K: int, N: int) -> int:
+    return _lib().match_top2_scratch_bytes(K, N)
 
 
 def _check(name, t, shape, dtype):
@@ -84,21 +94,23 @@ def match_top2(desc_a, mask_a, desc_b, mask_b, uv_pred=None, uv_b=None,
     if gated:
         _check("uv_pred", uv_pred, (K, 2), torch.float32)
         _check("uv_b", uv_b, (N, 2), torch.float32)
+    if desc_a.data_ptr() % 16 or desc_b.data_ptr() % 16:
+        raise ValueError("match_top2 kernel: desc_a and desc_b must start on 16 bytes "
+                         "(the kernel stages them with 16-byte async copies)")
     dev = desc_a.device
     min1 = torch.empty(K, dtype=torch.float32, device=dev)
     min2 = torch.empty(K, dtype=torch.float32, device=dev)
     arg1 = torch.empty(K, dtype=torch.int32, device=dev)
     colarg = torch.empty(N, dtype=torch.int32, device=dev)
-    colkey = torch.empty(N, dtype=torch.int64, device=dev)
-    fn = _lib()
+    nbytes = _scratch_bytes(K, N)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        err = fn(desc_a.data_ptr(), desc_b.data_ptr(), mask_a.data_ptr(),
-                 mask_b.data_ptr(), uv_pred.data_ptr() if gated else None,
-                 uv_b.data_ptr() if gated else None,
-                 float(gate_radius) ** 2 if gated else 0.0, int(gated),
-                 min1.data_ptr(), min2.data_ptr(), arg1.data_ptr(),
-                 colarg.data_ptr(), colkey.data_ptr(), K, N, D,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = _lib().match_top2(
+            desc_a.data_ptr(), desc_b.data_ptr(), mask_a.data_ptr(), mask_b.data_ptr(),
+            uv_pred.data_ptr() if gated else None, uv_b.data_ptr() if gated else None,
+            float(gate_radius) ** 2 if gated else 0.0, int(gated), min1.data_ptr(),
+            min2.data_ptr(), arg1.data_ptr(), colarg.data_ptr(), scratch.data_ptr(), nbytes,
+            K, N, D, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"match_top2 launch failed: cudaError {err}")
     match_top2.launches += 1
