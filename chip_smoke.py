@@ -6,10 +6,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
   0. environment: the card (nvidia-smi name and power limit), torch, CUDA,
      nvcc, the TF32 flags;
   1. build: every CUDA kernel from vislam_tpu_torch/ops/csrc/, one nvcc per
-     source, all started together;
+     source, all started together; then ptxas's registers, spills and
+     shared memory of every kernel instance;
   2. kernels: each kernel, and each response family, against its plain
      PyTorch twin on the card at the shapes its path gives it, with the
-     tests' tolerances. The match kernel is also held on ragged shapes,
+     tests' tolerances. Response and FED are also held on ragged shapes
+     ((37, 53), (1, 752), (480, 1)) and a batch of two, every response
+     family at each of its tile heights, FED on 1, 3, 5 and 12 steps and
+     with a distinct k per field; the match kernel on ragged shapes,
      all-invalid rows and columns and gates with empty discs;
   3. paths: run_sequence_scan over a 480x752 synthetic sequence with GT
      scale, K = 768, for each frontend the port runs:
@@ -58,8 +62,10 @@ functions. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +76,7 @@ import torch
 DEV = "cuda"
 N_FRAMES = 60      # frames of the 60-frame paths
 N_SHORT = 10       # frames of the short paths and of each CPU reference
+TILE_ROWS = (8, 16, 32)   # the response kernel's tile heights, each checked
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
 # dense): HBM bytes/s, float32 flop/s outside the tensor cores, and TF32
@@ -267,6 +274,46 @@ def report_phase(rows) -> None:
                    launches_per_call=[m["launches"] for m in ms])
 
 
+def _kernel_name(mangled: str) -> str:
+    """The name of a kernel from its mangled name: the length-prefixed
+    component of the nested name that ends in "_kernel"."""
+    i = mangled.find("N") + 1            # _ZN <length><name> ...
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        if mangled[j:j + n].endswith("_kernel"):
+            return mangled[j:j + n]
+        i = j + n
+    return mangled
+
+
+def ptxas_phase() -> None:
+    """nvcc's report of every kernel instance: registers, spills and shared
+    memory (static from ptxas; dynamic from the sources' own size functions,
+    response_nms per family and tile height, FED per tile and steps)."""
+    from vislam_tpu_torch.ops import build
+
+    rnms = build.load("response_nms").response_nms_smem_bytes
+    fed = build.load("fed_evolve").fed_steps_smem_bytes
+    for fn in (rnms, fed):
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for name in build.SOURCES:
+        for fn, regs, st, ld, static in build.ptxas_report(name):
+            kernel = _kernel_name(fn)
+            args = [int(v) for v in re.findall(r"Li(\d+)E", fn)]
+            if kernel == "response_nms_kernel":
+                dyn = f"{rnms(*args)} B"                          # (family, tile rows)
+            elif kernel == "fed_kernel":                        # (TH, TW, R, T, MINB, steps)
+                dyn = f"{fed(args[-1], 0 if args[:2] == [32, 32] else 1)} B"
+            else:
+                dyn = "per launch (see the source)"
+            print(f"ptxas {name}: {kernel}<{', '.join(map(str, args))}>: {regs} registers, "
+                  f"spill stores {st} B, spill loads {ld} B, static shared {static} B, "
+                  f"dynamic shared {dyn}", flush=True)
+
+
 def _counters():
     """name -> (object whose `launches` holds the count, key or None)."""
     from vislam_tpu_torch.ops.fed_kernel import fed_evolve
@@ -299,11 +346,46 @@ def _frontend(**overrides):
     return dataclasses.replace(base, frontend=dataclasses.replace(base.frontend, **overrides))
 
 
+def _response_check(fam, label, x, k_nms, k_resp) -> float:
+    """The kernel's (nms, resp) of images x (B, H, W) against the plain
+    twin's; returns the largest response error."""
+    from vislam_tpu_torch.ops.harris_kernel import response_nms_plain
+
+    p_nms, p_resp = response_nms_plain(x, fam)
+    torch.cuda.synchronize()
+    err = (k_resp - p_resp).abs().max().item()
+    scale = max(p_resp.abs().max().item(), 1.0)
+    agree = 1.0 if k_nms is None else \
+        (torch.isneginf(k_nms) == torch.isneginf(p_nms)).float().mean().item()
+    # The tests' bounds (tests/test_ops.py): error / scale < 1e-4, NMS
+    # agreement > 0.999 (float32 sums in another order may flip a near-tied
+    # maximum).
+    if not err / scale < 1e-4 or not agree > 0.999:
+        _fail(f"response_nms {fam} disagrees at {label}: max abs err {err} (scale {scale}), "
+              f"nms agreement {agree}")
+    print(f"kernel response_nms {fam} {label}: max_abs_err {err:.3e} (scale {scale:.3e}), "
+          f"nms agreement {agree:.6f}", flush=True)
+    return err
+
+
+def _ragged_cases(seq) -> list:
+    """(label, (B, H, W) float32 images) off the paths' shapes: ragged
+    tiles, a row, a column, a batch of two frames."""
+    a = torch.as_tensor(seq["images"][1]).to(DEV, torch.float32)
+    b = torch.as_tensor(seq["images"][2]).to(DEV, torch.float32)
+    return [("ragged (37, 53)", a[None, :37, :53].contiguous()),
+            ("ragged (1, 752)", a[None, :1].contiguous()),
+            ("ragged (480, 1)", a[None, :, :1].contiguous()),
+            ("batch of two (2, 480, 752)", torch.stack([a, b]))]
+
+
 def _response_rows(seq):
-    """Every response family against its plain twin on its path's levels."""
+    """Every response family against its plain twin on its path's levels,
+    at every tile height the kernel has, and on the ragged cases."""
     from vislam_tpu_torch.frontend.nonlinear import nonlinear_scale_space
     from vislam_tpu_torch.frontend.pyramid import build_pyramid
-    from vislam_tpu_torch.ops.harris_kernel import response_nms, response_nms_plain
+    from vislam_tpu_torch.ops.harris_kernel import launch_kernel, response_nms, \
+        response_nms_plain
 
     img = torch.as_tensor(seq["images"][1]).to(DEV, torch.float32)
     # The levels each detector sees: the bf16 Gaussian pyramid widened to
@@ -313,27 +395,19 @@ def _response_rows(seq):
     nonlin = [lv.contiguous() for lv in nonlinear_scale_space(img.to(torch.bfloat16), 2)]
     fields = {"shi_tomasi": gauss, "harris": gauss, "dog": gauss, "hessian": nonlin,
               "fast": nonlin, "_gradmag2": [img]}
+    ragged = _ragged_cases(seq)
     rows = []
     for fam, levels in fields.items():
         err_max = 0.0
         measures = []
         for lv in levels:
             k_nms, k_resp = response_nms(lv, fam)
-            p_nms, p_resp = response_nms_plain(lv[None], fam)
-            p_resp = p_resp[0]
-            torch.cuda.synchronize()
-            err = (k_resp - p_resp).abs().max().item()
-            scale = max(p_resp.abs().max().item(), 1.0)
-            agree = 1.0 if k_nms is None else \
-                (torch.isneginf(k_nms) == torch.isneginf(p_nms[0])).float().mean().item()
-            # The tests' bounds (tests/test_ops.py): error / scale < 1e-4,
-            # NMS agreement > 0.999 (float32 sums in another order may flip
-            # a near-tied maximum).
-            if not err / scale < 1e-4 or not agree > 0.999:
-                _fail(f"response_nms {fam} disagrees at {tuple(lv.shape)}: max abs err "
-                      f"{err} (scale {scale}), nms agreement {agree}")
-            print(f"kernel response_nms {fam} {tuple(lv.shape)}: max_abs_err {err:.3e} "
-                  f"(scale {scale:.3e}), nms agreement {agree:.6f}", flush=True)
+            err = _response_check(fam, str(tuple(lv.shape)), lv[None],
+                                  None if k_nms is None else k_nms[None], k_resp[None])
+            for rows_ in TILE_ROWS:
+                err_max = max(err_max, _response_check(
+                    fam, f"{tuple(lv.shape)} tile rows {rows_}", lv[None],
+                    *launch_kernel(lv[None], fam, rows_)))
             px = lv.numel()
             writes = 1 if fam == "_gradmag2" else 2
             measures.append(_measure(
@@ -343,45 +417,73 @@ def _response_rows(seq):
                 [(RESPONSE_FLOP_PER_PX[fam] * px, "fp32",
                   f"{RESPONSE_FLOP_PER_PX[fam]} flop/px x {px} px")], 1))
             err_max = max(err_max, err)
+        for label, x in ragged:
+            err_max = max(err_max, _response_check(fam, label, x, *response_nms(x, fam)))
         rows.append(_row(f"response_nms:{fam}", fam, "vislam_tpu_torch/ops/csrc/response_nms.cu",
                          "vislam_tpu/ops/harris_kernel.py:193", err_max, measures))
     return rows
 
 
+def _fed_check(label, L, k, taus) -> tuple:
+    """The kernel on (B, H, W) fields L with k (B,) against the plain twin;
+    returns (its output, max abs error)."""
+    from vislam_tpu_torch.ops.fed_kernel import fed_evolve, fed_evolve_plain
+
+    out = fed_evolve(L, k, taus)
+    ref = fed_evolve_plain(L, k, taus)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    # float32 stencils summed in another order, through n steps of a stable
+    # diffusion on a 0-255 field: 1e-3 absolute is ~4e-6 relative.
+    if not err < 1e-3:
+        _fail(f"fed_evolve {label} disagrees: max abs err {err}")
+    print(f"kernel fed_evolve {label}: max_abs_err {err:.3e}", flush=True)
+    return out, err
+
+
 def _fed_row(seq):
     """FED at 480x752: the 4-step cycle on the presmoothed frame and the
-    8-step one on level 0, as the nonlinear scale space runs them."""
+    8-step one on level 0, as the nonlinear scale space runs them; then
+    other step counts (n = 1, 3, 5, 12: 1 to 3 launches, uneven splits), a
+    batch of two with distinct k, and the ragged cases."""
     from vislam_tpu_torch.frontend.nonlinear import contrast_factor, fed_tau_steps
     from vislam_tpu_torch.frontend.pyramid import gaussian_blur
-    from vislam_tpu_torch.ops.fed_kernel import fed_evolve, fed_evolve_plain
+    from vislam_tpu_torch.ops.fed_kernel import fed_evolve, fed_evolve_plain, fed_schedule
 
     img = torch.as_tensor(seq["images"][1]).to(DEV, torch.bfloat16)
     k = contrast_factor(img)
     L = gaussian_blur(img, 1.0).float().contiguous()
+    kb = k.reshape(1)
     err_max = 0.0
     measures = []
     for T in (0.78, 3.84):
         taus = fed_tau_steps(T)
-        out = fed_evolve(L, k, taus)
-        ref = fed_evolve_plain(L[None], k.reshape(1), taus)[0]
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        # float32 stencils summed in another order, through n steps of a
-        # stable diffusion on a 0-255 field: 1e-3 absolute is ~4e-6 relative.
-        if not err < 1e-3:
-            _fail(f"fed_evolve n={len(taus)} disagrees: max abs err {err}")
-        print(f"kernel fed_evolve n={len(taus)} {tuple(L.shape)} k={k.item():.4f}: max_abs_err "
-              f"{err:.3e}", flush=True)
         n, px = len(taus), L.numel()
-        # One launch per step; the function reads L and k and writes the field.
+        out, err = _fed_check(f"n={n} {tuple(L.shape)} k={k.item():.4f}", L[None], kb, taus)
+        # The function reads L and k and writes the field.
         measures.append(_measure(
             f"fed_evolve n={n} {tuple(L.shape)}",
-            lambda L=L, taus=taus: fed_evolve_plain(L[None], k.reshape(1), taus),
+            lambda L=L, taus=taus: fed_evolve_plain(L[None], kb, taus),
             lambda L=L, taus=taus: fed_evolve(L, k, taus),
             8 * px + 4, [(n * FED_FLOP_PER_PX_STEP * px, "fp32",
-                          f"{n} steps x {FED_FLOP_PER_PX_STEP} flop/px x {px} px")], n))
+                          f"{n} steps x {FED_FLOP_PER_PX_STEP} flop/px x {px} px")],
+            len(fed_schedule(n))))
         err_max = max(err_max, err)
-        L = out
+        L = out[0]
+    # Other step counts take the first n steps of a long cycle (all under
+    # the explicit limit 0.25): a whole cycle's long last steps amplify
+    # float32 round-off whatever the kernel (tests/test_torch_nonlinear.py).
+    L0 = gaussian_blur(img, 1.0).float().contiguous()
+    for n in (1, 3, 5, 12):
+        err_max = max(err_max, _fed_check(f"n={n} {tuple(L0.shape)}", L0[None], kb,
+                                          fed_tau_steps(40.0)[:n])[1])
+    two = torch.stack([L0, L])
+    k2 = torch.stack([k, 0.7 * k])
+    err_max = max(err_max, _fed_check("n=8 batch of two, distinct k", two, k2,
+                                      fed_tau_steps(3.84))[1])
+    for label, x in _ragged_cases(seq):
+        err_max = max(err_max, _fed_check(f"n=4 {label}", x, k.expand(x.shape[0]).contiguous(),
+                                          fed_tau_steps(0.78))[1])
     return _row("fed_evolve", "fed_evolve", "vislam_tpu_torch/ops/csrc/fed_evolve.cu",
                 "vislam_tpu/ops/fed_kernel.py:83", err_max, measures)
 
@@ -737,6 +839,7 @@ def main() -> None:
         print(f"build: {path}", flush=True)
         build.load(name)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    ptxas_phase()
 
     t0 = time.perf_counter()
     seq = make_synthetic_sequence(SyntheticConfig(n_frames=N_FRAMES + 1, n_landmarks=300,

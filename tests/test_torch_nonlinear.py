@@ -70,6 +70,64 @@ def test_fed_twin_matches_pallas_and_evolve(T):
     np.testing.assert_allclose(one, t[0], rtol=0, atol=1e-6)
 
 
+def _fed_by_schedule(x, k, taus, s):
+    """What the kernel computes, launch by launch along fed_schedule: each
+    launch's output tiles (the kernel's TILE) cut from its source with the
+    schedule's halo, row and column indices clamped into the source (the
+    edge extension, for the first launch), stepped by the plain twin's
+    step, and cropped by the halo."""
+    B, H, W = x.shape
+    th, tw = tfed.TILE
+    kb = k.reshape(B, 1, 1)
+    src = x
+    for ln in tfed.fed_schedule(len(taus), s):
+        h, se, de = ln.halo, ln.src_ext, ln.dst_ext
+        dH, dW = H + 2 * de, W + 2 * de
+        dst = torch.empty(B, dH, dW)
+        for ty in range(0, dH, th):
+            for tx in range(0, dW, tw):
+                # dst-local (r, c) is src-local (r - de + se, c - de + se)
+                rows = (torch.arange(ty - h, ty + th + h) - de + se).clamp(0, src.shape[1] - 1)
+                cols = (torch.arange(tx - h, tx + tw + h) - de + se).clamp(0, src.shape[2] - 1)
+                t = src[:, rows][:, :, cols]
+                for tau in taus[ln.first:ln.first + ln.steps]:
+                    gx, gy = tfed.scharr_gradients(tfed.gaussian_blur(t, 1.0, radius=2))
+                    t = tfed.diffusion_step(t, tfed.pm_g2(gx, gy, kb), tau)
+                t = t[:, h:h + th, h:h + tw]
+                dst[:, ty:ty + th, tx:tx + tw] = t[:, :dH - ty, :dW - tx]
+        src = dst
+    return src
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 12])
+def test_fed_schedule_tiles_equal_the_whole_field(n):
+    """The kernel's launch schedule and halo arithmetic, on the host: the
+    plain twin stepped launch by launch on clamped, haloed tiles of a
+    ragged (not tile-multiple) batch of two with distinct k equals the plain
+    twin on the whole field (the same float32 operations, so to round-off
+    of convolutions at other sizes) and fed_evolve_pallas(interpret=True)
+    within the 1e-5 of test_fed_twin_matches_pallas_and_evolve. A halo of
+    4 s - 1 fails it. The steps are the first n of a long cycle, all under
+    the explicit limit 0.25: a cycle's long last steps (6.1 at n = 12)
+    amplify float32 round-off between the twin and the Pallas kernel to
+    ~1.6e-4 whatever the schedule; whole cycles are held above."""
+    taus = tuple(tnl.fed_tau_steps(40.0))[:n]
+    assert len(taus) == n
+    sched = tfed.fed_schedule(n)
+    assert sum(ln.steps for ln in sched) == n and sched[-1].dst_ext == 0
+    assert max(ln.steps for ln in sched) <= tfed.STEPS_PER_LAUNCH
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0, 1, (2, 45, 83)).astype(np.float32)
+    ks = np.array([0.1, 0.25], np.float32)
+    x, k = torch.from_numpy(img), torch.from_numpy(ks)
+    tiled = _fed_by_schedule(x, k, taus, tfed.STEPS_PER_LAUNCH).numpy()
+    whole = tfed.fed_evolve_plain(x, k, taus).numpy()
+    assert tiled.shape == img.shape
+    np.testing.assert_allclose(tiled, whole, rtol=0, atol=1e-6)
+    p = np.asarray(fed_evolve_pallas(jnp.asarray(img), jnp.asarray(ks), taus, interpret=True))
+    assert np.abs(tiled - p).max() < 1e-5
+
+
 def test_pm_g2_and_diffusion_step_match_reference():
     rng = np.random.default_rng(6)
     L, gx, gy = (rng.normal(size=(40, 56)).astype(np.float32) for _ in range(3))

@@ -4,12 +4,14 @@ Each source is compiled on first use into `vislam_tpu_torch/_build/`, as a
 shared library with a plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so ops/csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so ops/csrc/<name>.cu
 
 The file name carries a hash of the source, the headers beside it
 (`csrc/*.cuh`) and the flags, so an edited source or header rebuilds and a
 stale library is never loaded. `build_all` starts one
-nvcc per missing source, all at once. A plain C interface
+nvcc per missing source, all at once. ptxas's report of each kernel
+instance (registers, spills, static shared memory) is kept beside the
+library and read by `ptxas_report`. A plain C interface
 (no PyTorch headers) keeps the build to seconds. A failed build raises with
 nvcc's output; nothing falls back.
 """
@@ -20,6 +22,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,7 +31,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 SOURCES = ("response_nms", "fed_evolve", "match_top2")
 
@@ -84,6 +87,8 @@ def build_all(names) -> list:
                 failed.append(f"nvcc failed ({proc.returncode}) building {src}:\n"
                               f"{' '.join(cmd)}\n{stdout}\n{stderr}")
             else:
+                with open(out + ".ptxas", "w") as f:
+                    f.write(stderr)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -102,3 +107,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _loaded[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> list:
+    """Per kernel instance of csrc/<name>.cu, as ptxas reported it when the
+    library was built: (mangled name, registers, spill store bytes, spill
+    load bytes, static shared memory bytes)."""
+    with open(library_path(name) + ".ptxas") as f:
+        text = f.read()
+    out = []
+    # ptxas prints, per entry function: "Compiling entry function 'X'",
+    # "... N bytes spill stores, N bytes spill loads", "Used N registers, ...
+    # [N bytes smem, ...]".
+    for block in re.split(r"Compiling entry function ", text)[1:]:
+        fn = re.match(r"'([^']+)'", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        if fn and regs:
+            out.append((fn.group(1), int(regs.group(1)),
+                        int(spill.group(1)) if spill else 0, int(spill.group(2)) if spill else 0,
+                        int(smem.group(1)) if smem else 0))
+    return out

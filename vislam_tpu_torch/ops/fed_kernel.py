@@ -11,12 +11,14 @@ the gradients, edge values for the flux) and agrees with this only about
 4n px in from the border.
 
 A CPU tensor runs the plain twin; a CUDA tensor launches
-`csrc/fed_evolve.cu` once per step or raises.
+`csrc/fed_evolve.cu` along `fed_schedule` (several steps fused per launch)
+or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -61,22 +63,87 @@ def fed_evolve_plain(L, k, taus):
     return x[:, h:h + H, h:h + W]
 
 
+HALO_PER_STEP = 4      # px one step reads around what it writes: blur 2 + Scharr 1 + flux 1
+STEPS_PER_LAUNCH = 3   # steps fused per launch, of the kernel's 1-4 (chosen on the card: PERF.md)
+TILE = (32, 32)        # the output tile of the kernel's block shape 0, rows x columns
+
+
+class FedLaunch(NamedTuple):
+    """One launch of a FED cycle: steps [first, first + steps), read from the
+    image extended by `src_ext` px on each side (0: the image itself, reads
+    clamped into it) and written to the image extended by `dst_ext`; each
+    output tile is staged with `halo` px around it."""
+    first: int
+    steps: int
+    halo: int
+    src_ext: int
+    dst_ext: int
+
+
+def fed_schedule(n: int, s: int = STEPS_PER_LAUNCH) -> list:
+    """The launches of an n-step cycle with at most s steps each: ceil(n / s)
+    launches, their step counts as equal as possible (larger first). A
+    launch that leaves m steps to run writes the image extended by
+    HALO_PER_STEP * m, which is all the later launches read."""
+    if n < 1 or s < 1:
+        raise ValueError(f"fed_schedule needs n >= 1 and s >= 1, got {n}, {s}")
+    count = -(-n // s)
+    out, first, src_ext = [], 0, 0
+    for j in range(count):
+        steps = n // count + (j < n % count)
+        dst_ext = HALO_PER_STEP * (n - first - steps)
+        out.append(FedLaunch(first, steps, HALO_PER_STEP * steps, src_ext, dst_ext))
+        first, src_ext = first + steps, dst_ext
+    return out
+
+
 def _lib():
-    fn = build.load("fed_evolve").fed_step
+    fn = build.load("fed_evolve").fed_steps
     if fn.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [p, i, i, i, i, p, i, i, i, i, p, ctypes.c_float, i, p]
+        fn.argtypes = [p, i, i, i, i, p, i, i, i, i, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_schedule(x, kb, taus, s: int = STEPS_PER_LAUNCH, variant: int = 0):
+    """Run the kernel along fed_schedule(len(taus), s) on contiguous float32
+    (B, H, W) CUDA fields x with k (B,); returns the evolved fields. The
+    call counts once in `fed_evolve.launches`. `s` and `variant` (the
+    kernel's block shape) differ from the defaults only where designs are
+    compared on the card (scripts/torch_kernels_ab.py)."""
+    B, H, W = x.shape
+    sched = fed_schedule(len(taus), s)
+    e0 = sched[0].dst_ext
+    bufs = [torch.empty(B * (H + 2 * e0) * (W + 2 * e0), dtype=torch.float32, device=x.device)
+            for _ in range(min(len(sched) - 1, 2))]
+    out = torch.empty_like(x)
+    fn = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    src = x
+    with torch.cuda.device(x.device):
+        for j, ln in enumerate(sched):
+            dst = out if j == len(sched) - 1 else bufs[j % 2]
+            t = (ctypes.c_float * ln.steps)(*taus[ln.first:ln.first + ln.steps])
+            se, de = ln.src_ext, ln.dst_ext
+            err = fn(src.data_ptr(), -se, -se, H + 2 * se, W + 2 * se,
+                     dst.data_ptr(), -de, -de, H + 2 * de, W + 2 * de,
+                     kb.data_ptr(), t, ln.steps, variant, B, stream)
+            if err != 0:
+                raise RuntimeError(f"fed_evolve launch {j} ({ln}) failed: cudaError {err}")
+            src = dst
+    fed_evolve.launches += 1
+    return out
 
 
 def fed_evolve(L, k, taus):
     """Evolve L (H, W) or (B, H, W) float32 through the FED steps `taus`
     (static floats) with contrast k ((), or (B,) float32 on L's device).
 
-    CPU tensor: the plain version. CUDA tensor: one kernel launch per step
-    (counted in `fed_evolve.launches` per call), ping-ponging two scratch
-    buffers; anything else raises.
+    CPU tensor: the plain version. CUDA tensor: the kernel, launched
+    len(fed_schedule(len(taus))) times (the call counted once in
+    `fed_evolve.launches`), ping-ponging two scratch buffers; anything else
+    raises.
     """
     taus = tuple(float(t) for t in taus)
     if L.dim() not in (2, 3):
@@ -98,25 +165,7 @@ def fed_evolve(L, k, taus):
         if n < 1 or B > 65535 or B * (H + 8 * n) * (W + 8 * n) >= 2 ** 31:
             raise ValueError(f"fed_evolve kernel: {n} steps on {tuple(x.shape)} "
                              "out of range")
-        kb = kb.contiguous()
-        e0 = 4 * (n - 1)
-        cap = B * (H + 2 * e0) * (W + 2 * e0)
-        bufs = [torch.empty(cap, dtype=torch.float32, device=x.device) for _ in range(min(n - 1, 2))]
-        out = torch.empty_like(x)
-        fn = _lib()
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        src, s_ext = x, 0
-        with torch.cuda.device(x.device):
-            for s, tau in enumerate(taus, start=1):
-                d_ext = 4 * (n - s)
-                dst = out if s == n else bufs[(s - 1) % 2]
-                err = fn(src.data_ptr(), -s_ext, -s_ext, H + 2 * s_ext, W + 2 * s_ext,
-                         dst.data_ptr(), -d_ext, -d_ext, H + 2 * d_ext, W + 2 * d_ext,
-                         kb.data_ptr(), tau, B, stream)
-                if err != 0:
-                    raise RuntimeError(f"fed_evolve step {s} launch failed: cudaError {err}")
-                src, s_ext = dst, d_ext
-        fed_evolve.launches += 1
+        out = launch_schedule(x, kb.contiguous(), taus)
     else:
         raise ValueError(f"unsupported device {L.device}")
     return out if L.dim() == 3 else out[0]

@@ -141,9 +141,27 @@ def _lib():
     fn = build.load("response_nms").response_nms
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_kernel(x, detector: str, tile_rows: int = 0):
+    """(nms, resp) of contiguous float32 (B, H, W) CUDA images x from one
+    launch of the kernel, counted in `response_nms.launches`. tile_rows: 8,
+    16 or 32 rows per block, or 0 for the kernel's own choice from the
+    shape; chip_smoke.py compares the three on the card."""
+    B, H, W = x.shape
+    resp = torch.empty_like(x)
+    nms_ = None if detector == "_gradmag2" else torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _lib()(FAMILIES.index(detector), x.data_ptr(),
+                     None if nms_ is None else nms_.data_ptr(), resp.data_ptr(),
+                     B, H, W, tile_rows, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"response_nms ({detector}) launch failed: cudaError {err}")
+    response_nms.launches[detector] += 1
+    return nms_, resp
 
 
 def response_nms(img, detector: str = "shi_tomasi", nms_radius: int = 2):
@@ -171,15 +189,7 @@ def response_nms(img, detector: str = "shi_tomasi", nms_radius: int = 2):
         B, H, W = x.shape
         if B * H * W >= 2 ** 31 or B > 65535:
             raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's indexing")
-        resp = torch.empty_like(x)
-        nms_ = None if detector == "_gradmag2" else torch.empty_like(x)
-        with torch.cuda.device(x.device):
-            err = _lib()(FAMILIES.index(detector), x.data_ptr(),
-                         None if nms_ is None else nms_.data_ptr(), resp.data_ptr(),
-                         B, H, W, torch.cuda.current_stream(x.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"response_nms ({detector}) launch failed: cudaError {err}")
-        response_nms.launches[detector] += 1
+        nms_, resp = launch_kernel(x, detector)
     else:
         raise ValueError(f"unsupported device {img.device}")
     if img.dim() == 2:
