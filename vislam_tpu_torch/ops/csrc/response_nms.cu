@@ -34,7 +34,10 @@
 // 480x752 and 8 at 240x376, 360 blocks each. It stages the tile's image
 // rows plus the family's halo, columns [x0 - 8, x0 + 40), once, by 16-byte
 // cp.async copies whose zero fill gives the zero border (rows of
-// 4-float-aligned width; other widths load scalars). Then register tiling:
+// 4-float-aligned width; other widths load scalars). A TMA 2-D tile would
+// zero-fill the same border but needs a tensor map per image shape and
+// pointer, made on the host for every call; cp.async needs none. Then
+// register tiling:
 //  - vertical passes: each thread owns one column and a strip of rows (as
 //    few as give one round of the block's threads, at least 4) and slides
 //    the vertical taps in registers (the Scharr products and their 7-tap
