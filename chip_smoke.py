@@ -292,21 +292,21 @@ def _kernel_name(mangled: str) -> str:
 def ptxas_phase() -> None:
     """nvcc's report of every kernel instance: registers, spills and shared
     memory (static from ptxas; dynamic from the sources' own size functions,
-    response_nms per family and tile height, FED per tile and steps)."""
+    response_nms per family and tile height, FED per steps per launch)."""
     from vislam_tpu_torch.ops import build
 
     rnms = build.load("response_nms").response_nms_smem_bytes
+    rnms.argtypes, rnms.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     fed = build.load("fed_evolve").fed_steps_smem_bytes
-    for fn in (rnms, fed):
-        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    fed.argtypes, fed.restype = [ctypes.c_int], ctypes.c_int
     for name in build.SOURCES:
         for fn, regs, st, ld, static in build.ptxas_report(name):
             kernel = _kernel_name(fn)
             args = [int(v) for v in re.findall(r"Li(\d+)E", fn)]
             if kernel == "response_nms_kernel":
                 dyn = f"{rnms(*args)} B"                          # (family, tile rows)
-            elif kernel == "fed_kernel":                        # (TH, TW, R, T, MINB, steps)
-                dyn = f"{fed(args[-1], 0 if args[:2] == [32, 32] else 1)} B"
+            elif kernel == "fed_kernel":                        # (steps)
+                dyn = f"{fed(*args)} B"
             else:
                 dyn = "per launch (see the source)"
             print(f"ptxas {name}: {kernel}<{', '.join(map(str, args))}>: {regs} registers, "
@@ -384,8 +384,7 @@ def _response_rows(seq):
     at every tile height the kernel has, and on the ragged cases."""
     from vislam_tpu_torch.frontend.nonlinear import nonlinear_scale_space
     from vislam_tpu_torch.frontend.pyramid import build_pyramid
-    from vislam_tpu_torch.ops.harris_kernel import launch_kernel, response_nms, \
-        response_nms_plain
+    from vislam_tpu_torch.ops.harris_kernel import response_nms, response_nms_plain
 
     img = torch.as_tensor(seq["images"][1]).to(DEV, torch.float32)
     # The levels each detector sees: the bf16 Gaussian pyramid widened to
@@ -407,7 +406,7 @@ def _response_rows(seq):
             for rows_ in TILE_ROWS:
                 err_max = max(err_max, _response_check(
                     fam, f"{tuple(lv.shape)} tile rows {rows_}", lv[None],
-                    *launch_kernel(lv[None], fam, rows_)))
+                    *response_nms(lv[None], fam, tile_rows=rows_)))
             px = lv.numel()
             writes = 1 if fam == "_gradmag2" else 2
             measures.append(_measure(

@@ -1,200 +1,156 @@
 """Time this tree's response + NMS and FED kernels against another tree's on
-one NVIDIA card, and compare this tree's tile heights and FED steps per
-launch.
+one NVIDIA card, each through its own package's public functions.
 
     python3 scripts/torch_kernels_ab.py --other DIR
 
-DIR holds another tree of the repository (for example a `git archive` of
-the parent commit) whose `vislam_tpu_torch/ops/csrc/` has the first
-designs' C interfaces: `response_nms(family, img, nms, resp, B, H, W,
-stream)` and `fed_step(...)`, one FED step per launch. Its two sources are
-built with this tree's nvcc flags into `vislam_tpu_torch/_build/`.
-
-On the frames and levels `chip_smoke.py` uses (480x752 synthetic frame,
-two levels per detector): each kernel of both trees against this tree's
-plain twin (same tolerances as chip_smoke.py), then graph-replayed times
-(a CUDA graph of 100 calls, replayed 5 times) in turns other, this, this,
-other; then this tree's kernel at each tile height (response) and each
-steps-per-launch and tile (FED). Prints one line per measurement and a
-JSON summary last. Imports nothing of JAX.
+DIR holds another tree of the repository, for example a `git archive` of
+the parent commit unpacked into a gitignored directory. Each tree runs in a
+process of its own, which puts that tree first on `sys.path`, builds the
+tree's kernels into its own `vislam_tpu_torch/_build/` and calls its
+`response_nms(img, detector)` and `fed_evolve(L, k, taus)`: the API the
+trees share, whatever their kernels' C interfaces. The processes run in
+turns: other, this, this, other. Each holds every kernel against its
+tree's plain twin first (chip_smoke.py's tolerances), then times it as the
+replay of a CUDA graph that captured 100 calls (the device's time per
+call) on the images chip_smoke.py uses: each response family on its two
+levels (`_gradmag2` on the frame) and FED's 4- and 8-step cycles at
+480x752. Prints the card, one line per kernel and shape, and a JSON
+summary last. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
 import sys
 
-import torch
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-import chip_smoke as cs  # noqa: E402  (the repo root's smoke test: timing helpers)
-
 DEV = "cuda"
-# The block shapes of csrc/fed_evolve.cu's `variant` (output tile, blocks
-# per SM its register cap allows; 4-row strips, 256 threads); 0 is the
-# wrapper's.
-FED_VARIANTS = ("v0 32x32, 4 blocks/SM", "v1 32x64, 2 blocks/SM")
 
 
-def build_other(other: str) -> dict:
-    """ctypes libraries of the other tree's response_nms.cu and fed_evolve.cu."""
-    from vislam_tpu_torch.ops import build
-
-    out_dir = os.path.join(ROOT, "vislam_tpu_torch", "_build")
-    os.makedirs(out_dir, exist_ok=True)
-    jobs = {}
-    for name in ("response_nms", "fed_evolve"):
-        src = os.path.join(other, "vislam_tpu_torch", "ops", "csrc", name + ".cu")
-        lib = os.path.join(out_dir, f"other-{name}.so")
-        jobs[name] = (lib, subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, src],
-                                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                            text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            cs._fail(f"nvcc failed on the other tree's {name}.cu:\n{err}")
-        libs[name] = ctypes.CDLL(lib)
-    i, p = ctypes.c_int, ctypes.c_void_p
-    libs["response_nms"].response_nms.argtypes = [i, p, p, p, i, i, i, p]
-    libs["response_nms"].response_nms.restype = i
-    libs["fed_evolve"].fed_step.argtypes = [p, i, i, i, i, p, i, i, i, i, p, ctypes.c_float,
-                                            i, p]
-    libs["fed_evolve"].fed_step.restype = i
-    return libs
+def _fail(msg: str) -> None:
+    print(f"torch_kernels_ab: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
 
 
-def other_response(libs, x, fam):
-    """The other tree's response kernel on (B, H, W) x: (nms, resp)."""
-    from vislam_tpu_torch.ops.harris_kernel import FAMILIES
+def graph_us(fn, calls: int = 100, replays: int = 5) -> float:
+    """Mean us of one call replayed from a CUDA graph that captured `calls`
+    calls (chip_smoke.py's `_graph_ms`)."""
+    import torch
 
-    B, H, W = x.shape
-    resp = torch.empty_like(x)
-    nms = None if fam == "_gradmag2" else torch.empty_like(x)
-    err = libs["response_nms"].response_nms(
-        FAMILIES.index(fam), x.data_ptr(), None if nms is None else nms.data_ptr(),
-        resp.data_ptr(), B, H, W, torch.cuda.current_stream().cuda_stream)
-    if err:
-        cs._fail(f"other response_nms {fam}: cudaError {err}")
-    return nms, resp
-
-
-def other_fed(libs, x, kb, taus):
-    """The other tree's FED: one launch per step on the shrinking extended
-    domain (its wrapper's loop)."""
-    B, H, W = x.shape
-    n = len(taus)
-    e0 = 4 * (n - 1)
-    bufs = [torch.empty(B * (H + 2 * e0) * (W + 2 * e0), device=DEV) for _ in range(min(n - 1, 2))]
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream().cuda_stream
-    src, s_ext = x, 0
-    for s, tau in enumerate(taus, start=1):
-        d_ext = 4 * (n - s)
-        dst = out if s == n else bufs[(s - 1) % 2]
-        err = libs["fed_evolve"].fed_step(src.data_ptr(), -s_ext, -s_ext, H + 2 * s_ext,
-                                          W + 2 * s_ext, dst.data_ptr(), -d_ext, -d_ext,
-                                          H + 2 * d_ext, W + 2 * d_ext, kb.data_ptr(), tau, B,
-                                          stream)
-        if err:
-            cs._fail(f"other fed_step: cudaError {err}")
-        src, s_ext = dst, d_ext
-    return out
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays) * 1e3
 
 
-def turns(other, this) -> tuple:
-    """Graph-replayed ms of (other, this), measured other, this, this, other."""
-    o1 = cs._graph_ms(other)
-    t1 = cs._graph_ms(this)
-    t2 = cs._graph_ms(this)
-    o2 = cs._graph_ms(other)
-    return (o1 + o2) / 2, (t1 + t2) / 2, (o1, t1, t2, o2)
+def time_tree(tree: str) -> dict:
+    """The tree's kernels, each checked against its twin and then timed:
+    label -> graph-replayed us per call."""
+    sys.path.insert(0, tree)
+    import torch
 
-
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True, help="root of the other tree")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        cs._fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
-    card = cs._nvidia_smi()
-    print(card, flush=True)
-    import vislam_tpu_torch  # noqa: F401  (sets the TF32 flags)
+    import vislam_tpu_torch
+    if not os.path.abspath(vislam_tpu_torch.__file__).startswith(os.path.abspath(tree) + os.sep):
+        _fail(f"imported {vislam_tpu_torch.__file__}, not the package of {tree}")
     from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
     from vislam_tpu_torch.frontend.nonlinear import (contrast_factor, fed_tau_steps,
                                                      nonlinear_scale_space)
     from vislam_tpu_torch.frontend.pyramid import build_pyramid, gaussian_blur
-    from vislam_tpu_torch.ops import build
-    from vislam_tpu_torch.ops.fed_kernel import fed_evolve_plain, launch_schedule
-    from vislam_tpu_torch.ops.harris_kernel import launch_kernel
+    from vislam_tpu_torch.ops.fed_kernel import fed_evolve, fed_evolve_plain
+    from vislam_tpu_torch.ops.harris_kernel import response_nms, response_nms_plain
 
-    build.build_all(build.SOURCES)
-    libs = build_other(args.other)
     seq = make_synthetic_sequence(SyntheticConfig(n_frames=3, n_landmarks=300, seed=0))
     img = torch.as_tensor(seq["images"][1]).to(DEV, torch.float32)
     gauss = [lv.float().contiguous() for lv in build_pyramid(img.to(torch.bfloat16), 2)]
     nonlin = [lv.contiguous() for lv in nonlinear_scale_space(img.to(torch.bfloat16), 2)]
     fields = {"shi_tomasi": gauss, "harris": gauss, "dog": gauss, "hessian": nonlin,
               "fast": nonlin, "_gradmag2": [img]}
-    summary = {"card": card, "response": {}, "fed": {}}
-    # The floor under every time below: one launch of PyTorch's own fill of
-    # 4 bytes, and its copy of a 480x752 float32 field, graph-replayed alike.
-    one, dst = torch.empty(1, device=DEV), torch.empty_like(img)
-    summary["floor_us"] = {"fill 4 B": cs._graph_ms(lambda: one.fill_(0.0)) * 1e3,
-                           "copy 480x752 f32": cs._graph_ms(lambda: dst.copy_(img)) * 1e3}
-    print(f"ab floor: graph-replayed {summary['floor_us']} us", flush=True)
-
+    out = {}
     for fam, levels in fields.items():
         for lv in levels:
-            x = lv[None]
-            label = f"{fam} {tuple(lv.shape)}"
-            cs._response_check(fam, f"{label} (other tree)", x, *other_response(libs, x, fam))
-            o, t, raw = turns(lambda x=x, fam=fam: other_response(libs, x, fam),
-                              lambda x=x, fam=fam: launch_kernel(x, fam))
-            sweep = {}
-            for rows in cs.TILE_ROWS:
-                cs._response_check(fam, f"{label} tile rows {rows}", x,
-                                   *launch_kernel(x, fam, rows))
-                sweep[rows] = cs._graph_ms(lambda x=x, fam=fam, rows=rows:
-                                           launch_kernel(x, fam, rows))
-            print(f"ab response_nms {label}: graph other {o * 1e3:.2f} us, this {t * 1e3:.2f} "
-                  f"us ({t / o:.3f}x; turns {[round(v * 1e3, 2) for v in raw]}); this by tile "
-                  f"rows { {r: round(v * 1e3, 2) for r, v in sweep.items()} } us", flush=True)
-            summary["response"][label] = dict(other_us=o * 1e3, this_us=t * 1e3,
-                                              turns_us=[v * 1e3 for v in raw],
-                                              tile_rows_us={r: v * 1e3 for r, v in sweep.items()})
-
+            label = f"response_nms {fam} {tuple(lv.shape)}"
+            k_nms, k_resp = response_nms(lv, fam)
+            p_nms, p_resp = response_nms_plain(lv, fam)
+            err = (k_resp - p_resp).abs().max().item() / max(p_resp.abs().max().item(), 1.0)
+            agree = 1.0 if k_nms is None else \
+                (torch.isneginf(k_nms) == torch.isneginf(p_nms)).float().mean().item()
+            if not err < 1e-4 or not agree > 0.999:
+                _fail(f"{tree}: {label} disagrees with its twin: error / scale {err}, "
+                      f"nms agreement {agree}")
+            out[label] = graph_us(lambda lv=lv, fam=fam: response_nms(lv, fam))
     k = contrast_factor(img.to(torch.bfloat16))
-    kb = k.reshape(1)
-    L = gaussian_blur(img.to(torch.bfloat16), 1.0).float().contiguous()[None]
-    for T in (0.78, 3.84):
-        taus = tuple(fed_tau_steps(T))
-        n = len(taus)
-        ref = fed_evolve_plain(L, kb, taus)
-        err_o = (other_fed(libs, L, kb, taus) - ref).abs().max().item()
-        o, t, raw = turns(lambda taus=taus: other_fed(libs, L, kb, taus),
-                          lambda taus=taus: launch_schedule(L, kb, taus))
-        sweep = {}
-        for s in range(1, 5):   # the kernel fuses at most 4 steps
-            for v in range(len(FED_VARIANTS)):
-                err = (launch_schedule(L, kb, taus, s, v) - ref).abs().max().item()
-                if not err < 1e-3 or not err_o < 1e-3:
-                    cs._fail(f"fed n={n} s={s} variant={v}: max abs err {err} (other {err_o})")
-                sweep[f"s={s} v{v}"] = cs._graph_ms(
-                    lambda taus=taus, s=s, v=v: launch_schedule(L, kb, taus, s, v)) * 1e3
-        print(f"ab fed_evolve n={n} {tuple(L.shape[1:])}: graph other {o * 1e3:.2f} us, this "
-              f"{t * 1e3:.2f} us ({t / o:.3f}x; turns {[round(v * 1e3, 2) for v in raw]}); "
-              f"this by steps per launch and block shape ({FED_VARIANTS}) "
-              f"{ {key: round(v, 2) for key, v in sweep.items()} } us", flush=True)
-        summary["fed"][f"n={n}"] = dict(other_us=o * 1e3, this_us=t * 1e3,
-                                        turns_us=[v * 1e3 for v in raw], sweep_us=sweep)
-        L = ref.contiguous()
+    L = gaussian_blur(img.to(torch.bfloat16), 1.0).float().contiguous()
+    for T in (0.78, 3.84):      # the nonlinear scale space's two cycles, n = 4 and 8
+        taus = fed_tau_steps(T)
+        label = f"fed_evolve n={len(taus)} {tuple(L.shape)}"
+        got = fed_evolve(L, k, taus)
+        err = (got - fed_evolve_plain(L[None], k.reshape(1), taus)[0]).abs().max().item()
+        if not err < 1e-3:
+            _fail(f"{tree}: {label} disagrees with its twin: max abs err {err}")
+        out[label] = graph_us(lambda L=L, taus=taus: fed_evolve(L, k, taus))
+        L = got.contiguous()
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", help="root of the other tree")
+    ap.add_argument("--tree", help="time only this tree, in this process (used by the turns)")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    if args.tree:
+        print(json.dumps(time_tree(args.tree)), flush=True)
+        return
+    if not args.other or not os.path.isdir(os.path.join(args.other, "vislam_tpu_torch")):
+        _fail(f"--other must name a tree of the repository, got {args.other!r}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    trees = {"other": os.path.abspath(args.other), "this": ROOT}
+    runs = []
+    for name in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", trees[name]],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            _fail(f"timing the {name} tree failed:\n{proc.stderr[-4000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    summary = {"card": card, "other": trees["other"], "us": {}}
+    for label in runs[0]:
+        turns = [r[label] for r in runs]
+        o, t = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        summary["us"][label] = dict(other=o, this=t, ratio=t / o, turns=turns)
+        print(f"ab {label}: graph other {o:.2f} us, this {t:.2f} us ({t / o:.3f}x; turns "
+              f"{[round(v, 2) for v in turns]})", flush=True)
+    # One frame's calls of each response family: its two levels.
+    for fam in ("shi_tomasi", "harris", "dog", "hessian", "fast"):
+        rows = [v for label, v in summary["us"].items() if label.startswith(f"response_nms {fam} ")]
+        o, t = sum(r["other"] for r in rows), sum(r["this"] for r in rows)
+        summary["us"][f"response_nms {fam} per frame"] = dict(other=o, this=t, ratio=t / o)
+        print(f"ab response_nms {fam} per frame (two levels): other {o:.2f} us, this {t:.2f} us "
+              f"({t / o:.3f}x)", flush=True)
     print(json.dumps(summary), flush=True)
 
 

@@ -63,6 +63,19 @@ def test_response_nms_matches_pallas_interpret(frame, shape):
     assert agree.mean() > 0.995, agree.mean()
 
 
+def test_response_nms_tile_rows_is_checked(frame):
+    """`tile_rows` picks the CUDA kernel's tile height for the on-card
+    checks; the plain version has no tiles, so every allowed value gives
+    the default's result, and any other value raises on every device."""
+    img = torch.from_numpy(frame[:40, :60].copy())
+    base = response_nms(img, "shi_tomasi")
+    for rows in (8, 16, 32):
+        got = response_nms(img, "shi_tomasi", tile_rows=rows)
+        assert all(torch.equal(a, b) for a, b in zip(got, base))
+    with pytest.raises(ValueError, match="tile_rows"):
+        response_nms(img, "shi_tomasi", tile_rows=12)
+
+
 def test_response_nms_matches_xla_f32_everywhere(frame):
     """Against the reference's XLA response + reduce_window NMS at float32:
     the same SAME padding, so the whole field agrees, borders included."""

@@ -1,4 +1,4 @@
-// A FED cycle of Perona-Malik diffusion, up to 4 explicit steps fused per
+// A FED cycle of Perona-Malik diffusion, up to 3 explicit steps fused per
 // launch by temporal blocking, for sm_90a.
 //
 // Replaces the Pallas TPU kernel vislam_tpu/ops/fed_kernel.py
@@ -17,8 +17,7 @@
 // a launch reads `src`, covering [sy, sy + sH) x [sx, sx + sW), clamping
 // each read into it, and writes `dst`, covering [dy, dy + dH) x [dx, dx +
 // dW). The wrapper's schedule (ops/fed_kernel.py `fed_schedule`) splits the
-// n steps into launches of at most 3 (the kernel takes 1-4): the first
-// reads the image itself, so
+// n steps into launches of at most 3: the first reads the image itself, so
 // clamping is the edge extension; a launch that leaves m steps to run
 // writes the image extended by 4m, the part the later launches read, so no
 // later read clamps; the last writes the image's own (H, W).
@@ -27,41 +26,43 @@
 // step against 8 bytes per pixel for the whole cycle: 1.3 us for the 4-step
 // cycle at 480x752, 2.6 us for the 8-step one. The first design (one launch
 // per step, one pixel per thread and phase, four phases) took 26.0 and
-// 56.5 us graph-replayed on an H100 80GB HBM3 at 700 W
-// (scripts/torch_kernels_ab.py): each step paid a launch and
-// ~37 scalar shared-memory reads per pixel.
+// 56.0 us graph-replayed on an H100 80GB HBM3 at 700 W (PERF.md): each
+// step paid a launch and ~37 scalar shared-memory reads per pixel.
 //
 // This design: temporal blocking. A 256-thread block owns a 32 x 32 output
 // tile and stages it plus a halo of 4 px per fused step (blur 2 + Scharr 1
 // + flux 1) once, by 16-byte cp.async copies (edge chunks, which clamp, by
 // scalar loads); it runs its steps in shared memory and registers on a
 // region that shrinks 4 px per step, and writes the tile once. The
-// wrapper fuses 3 steps per launch (its schedule: n = 4 in 2 launches,
-// n = 8 in 3). Blur and Scharr fold into two separable 7-tap filters, so
-// a step is two phases, each on groups of 4 columns (16-byte shared loads
-// and stores) by strips of 4 rows, and two barriers:
+// schedule gives n = 4 two launches of 2 steps and n = 8 three of 3, 3
+// and 2. Blur and Scharr fold into two separable 7-tap filters, so a step
+// is two phases, each on groups of 4 columns (16-byte shared loads and
+// stores) by strips of 4 rows, and two barriers:
 //   along y  A = s7 and B = d7 of L along y, sliding in registers;
 //   update   each strip computes g for its rows and one row above and
 //            below, at its 4 columns and one either side, from three
 //            16-byte loads of a row of A and of B (g never goes through
 //            shared memory), then L + tau * flux into the fourth field.
-// Four fields (L, A, B, the new L) of (32 + 8 s) x (40 + 8 s) floats: 57 KB
-// at 3 steps. Registers are capped at 64 (4 blocks per SM; nvcc: 64
-// registers, no spills at 3 steps), so that the first launches'
-// extended domains (up to 425 blocks) run in one wave. Graph-replayed at
-// 480x752: 15.2 us for n = 4 and 31.7 us for n = 8 (0.59x and 0.56x of the
-// first design measured beside it), ~8% of the bound.
+// Four fields (L, A, B, the new L) of (32 + 8 s) x (40 + 8 s) floats: 30,
+// 42 and 56 KB at 1, 2 and 3 steps. Registers are capped at 64 (4 blocks
+// per SM), so that the first launches' extended domains (up to 425
+// blocks) run in one wave; under that cap nvcc spills 16 B at 2 steps,
+// none at 1 or 3. Graph-replayed at 480x752: 15.2-15.4 us for n = 4 and
+// 32.0-32.4 us for n = 8, 0.584-0.586x and 0.571-0.578x of the first
+// design measured beside it (PERF.md, runs 9 and 13), ~8% of the bound.
+// Per launch, staging takes 1.3-2.1 us and each step's update 1.4-2.5
+// us, the pass along y 0.5-0.8 (PERF.md, run 15).
 //
-// Chosen on the card over (PERF.md): 1, 2 or 4 steps per
-// launch (1 pays a launch per step, ~0.9 us each; 4 pays ~1.8x the work of
-// the unfused steps in halo); 32 x 64 tiles (2 blocks per SM; block shape
-// 1, kept to compare: better at n = 8 only); a third phase storing g;
-// 1-, 2- and 8-row strips; 512-thread blocks; warp shuffles for the
-// neighbour columns. Not taken: a persistent kernel with a grid-wide
-// barrier between steps, which would pass the field through L2 at every
-// step as the first design did and needs a cooperative launch inside a
-// CUDA graph; fusing a whole 8-step cycle, whose 32-px halo is ~4x the
-// tile's work.
+// Chosen on the card over (PERF.md): 1 or 4 steps per launch (1 pays a
+// launch per step, ~1 us each; 4 pays ~1.8x the work of the unfused steps
+// in halo); 32 x 64 tiles (2 blocks per SM: faster at n = 8, slower at
+// n = 4, the frame's sum within 1%) and 16 x 64 tiles; a third phase
+// storing g; 1-, 2- and 8-row strips; 512-thread blocks; warp
+// shuffles for the neighbour columns. Not taken: a persistent kernel with
+// a grid-wide barrier between steps, which would pass the field through
+// L2 at every step as the first design did and needs a cooperative launch
+// inside a CUDA graph; fusing a whole 8-step cycle, whose 32-px halo is
+// ~4x the tile's work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,15 +73,11 @@
 
 namespace {
 
-constexpr int MAX_STEPS = 4;   // steps one launch fuses at most
+constexpr int MAX_STEPS = 3;   // steps one launch fuses at most
 constexpr int PAD = 4;         // floats on each side of a staged row
-
-// A block's shape: a TH x TW output tile, T threads, strips of R rows, at
-// least MINB blocks per SM (registers capped to fit).
-template <int TH_, int TW_, int R_, int T_, int MINB_>
-struct Cfg {
-  static constexpr int TH = TH_, TW = TW_, R = R_, T = T_, MINB = MINB_;
-};
+// A block: a TH x TW output tile, T threads, strips of R rows, at least
+// MINB blocks per SM (registers capped to fit).
+constexpr int TH = 32, TW = 32, R = 4, T = 256, MINB = 4;
 
 // Gaussian tap at offset i (radius 2, sigma 1): numpy's float32 values of
 // the reference's _gauss_taps(2, 1.0), normalised to sum 1.
@@ -143,7 +140,7 @@ __device__ __forceinline__ void st4(float* p, const float* v) {
 // last strip is moved up to end at r1 (every region is at least R rows
 // tall); a row it shares with the strip above is computed twice, to the
 // same value.
-template <int R, int T, class F>
+template <class F>
 __device__ __forceinline__ void for_strips(int r0, int r1, int c0, int c1, F f) {
   const int ng = (c1 - c0) / 4;
   const int ns = (r1 - r0 + R - 1) / R;
@@ -157,10 +154,9 @@ __device__ __forceinline__ void for_strips(int r0, int r1, int c0, int c1, F f) 
 
 // Phase 1, along y in registers: A = s7 of L and B = d7 of L over rows
 // [r0, r1) of the groups of [c0, c1).
-template <class C, int SWP>
+template <int SWP>
 __device__ void along_y(const float* L, float* A, float* B, int r0, int r1, int c0, int c1) {
-  constexpr int R = C::R;
-  for_strips<R, C::T>(r0, r1, c0, c1, [&](int c, int a) {
+  for_strips(r0, r1, c0, c1, [&](int c, int a) {
     float w[R + 6][4];
 #pragma unroll
     for (int i = 0; i < R + 6; ++i) ld4(L + (a - 3 + i) * SWP + PAD + c, w[i]);
@@ -217,11 +213,10 @@ __device__ __forceinline__ void update4(const float* l0, const float* l1, const 
 // from three 16-byte loads of each row of A and B, keeps it in registers
 // with its L, reads its neighbour columns' L from shared memory, and hands
 // the 4 new values of each row to out(r, c, v).
-template <class C, int SWP, class Out>
+template <int SWP, class Out>
 __device__ void conduct_update(const float* L, const float* A, const float* B, int r0, int r1,
                                int c0, int c1, float k2, float half_tau, Out out) {
-  constexpr int R = C::R;
-  for_strips<R, C::T>(r0, r1, c0, c1, [&](int c, int a) {
+  for_strips(r0, r1, c0, c1, [&](int c, int a) {
     float l[R + 2][4], g[R + 2][6];
 #pragma unroll
     for (int i = 0; i < R + 2; ++i) {
@@ -246,12 +241,11 @@ __device__ void conduct_update(const float* L, const float* A, const float* B, i
   });
 }
 
-template <class C, int S>
-__global__ void __launch_bounds__(C::T, C::MINB)
+template <int S>
+__global__ void __launch_bounds__(T, MINB)
 fed_kernel(const float* __restrict__ src, int sy, int sx, int sH, int sW,
            float* __restrict__ dst, int dy, int dx, int dH, int dW,
            const float* __restrict__ k, Taus taus) {
-  constexpr int TH = C::TH, TW = C::TW;
   constexpr int h = 4 * S;
   constexpr int SH = TH + 2 * h, SW = TW + 2 * h, SWP = SW + 2 * PAD;
   extern __shared__ __align__(16) float smem[];
@@ -271,7 +265,7 @@ fed_kernel(const float* __restrict__ src, int sy, int sx, int sH, int sW,
   const int oy = dy + ty - h - sy, ox = dx + tx - h - sx;
   const bool vec = ((sW | ox) & 3) == 0 && (reinterpret_cast<uintptr_t>(Sb) & 15) == 0;
   constexpr int chunks = SW / 4;
-  for (int i = threadIdx.x; i < SH * chunks; i += C::T) {
+  for (int i = threadIdx.x; i < SH * chunks; i += T) {
     const int r = i / chunks, c = 4 * (i - r * chunks);
     const float* row = Sb + (size_t)clampi(oy + r, 0, sH - 1) * sW;
     float* d = L + r * SWP + PAD + c;
@@ -301,96 +295,68 @@ fed_kernel(const float* __restrict__ src, int sy, int sx, int sH, int sW,
 #pragma unroll
   for (int j = 1; j <= S; ++j) {
     const int e = 4 * (j - 1);
-    along_y<C, SWP>(L, A, B, e + 3, SH - e - 3, e, SW - e);
+    along_y<SWP>(L, A, B, e + 3, SH - e - 3, e, SW - e);
     __syncthreads();
     const float half_tau = 0.5f * taus.t[j - 1];
     if (j < S) {
-      conduct_update<C, SWP>(L, A, B, e + 4, SH - e - 4, e + 4, SW - e - 4, k2, half_tau,
-                             to_shared);
+      conduct_update<SWP>(L, A, B, e + 4, SH - e - 4, e + 4, SW - e - 4, k2, half_tau,
+                          to_shared);
       __syncthreads();
       float* t = L;
       L = Ln;
       Ln = t;
     } else {
-      conduct_update<C, SWP>(L, A, B, h, h + TH, h, h + TW, k2, half_tau, to_global);
+      conduct_update<SWP>(L, A, B, h, h + TH, h, h + TW, k2, half_tau, to_global);
     }
   }
 }
 
-template <class C, int S>
+template <int S>
 constexpr size_t smem_bytes() {
-  return 4 * sizeof(float) * (C::TH + 8 * S) * (C::TW + 8 * S + 2 * PAD);
+  return 4 * sizeof(float) * (TH + 8 * S) * (TW + 8 * S + 2 * PAD);
 }
 
-template <class C, int S>
+template <int S>
 int launch(const float* src, int sy, int sx, int sH, int sW, float* dst, int dy, int dx,
            int dH, int dW, const float* k, const Taus& taus, int B, cudaStream_t s) {
   static std::atomic<unsigned long long> configured{0};
-  const cudaError_t e = set_smem_once(
-      configured, reinterpret_cast<const void*>(fed_kernel<C, S>), smem_bytes<C, S>());
+  const cudaError_t e =
+      set_smem_once(configured, reinterpret_cast<const void*>(fed_kernel<S>), smem_bytes<S>());
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((dW + C::TW - 1) / C::TW, (dH + C::TH - 1) / C::TH, B);
-  fed_kernel<C, S><<<grid, C::T, smem_bytes<C, S>(), s>>>(src, sy, sx, sH, sW, dst, dy, dx,
-                                                           dH, dW, k, taus);
+  const dim3 grid((dW + TW - 1) / TW, (dH + TH - 1) / TH, B);
+  fed_kernel<S><<<grid, T, smem_bytes<S>(), s>>>(src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k,
+                                                 taus);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class C>
-int launch_steps(int steps, const float* src, int sy, int sx, int sH, int sW, float* dst,
-                 int dy, int dx, int dH, int dW, const float* k, const Taus& t, int B,
-                 cudaStream_t s) {
-  switch (steps) {
-    case 1: return launch<C, 1>(src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
-    case 2: return launch<C, 2>(src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
-    case 3: return launch<C, 3>(src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
-    case 4: return launch<C, 4>(src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <class C>
-int smem_steps(int steps) {
-  return steps == 1   ? (int)smem_bytes<C, 1>()
-         : steps == 2 ? (int)smem_bytes<C, 2>()
-         : steps == 3 ? (int)smem_bytes<C, 3>()
-         : steps == 4 ? (int)smem_bytes<C, 4>()
-                      : -1;
-}
-
-// The block shapes compared on the card (PERF.md); 0 is the wrapper's.
-using V0 = Cfg<32, 32, 4, 256, 4>;
-using V1 = Cfg<32, 64, 4, 256, 2>;
-
 }  // namespace
 
-// `steps` (1..4) FED steps with step sizes taus[0..steps) for a batch of B
+// `steps` (1..3) FED steps with step sizes taus[0..steps) for a batch of B
 // fields. src (B, sH, sW) covers image coordinates [sy, sy + sH) x [sx, sx +
 // sW); dst (B, dH, dW) covers [dy, dy + dH) x [dx, dx + dW), at least 4 *
 // steps inside src on every side unless src is the image itself; k (B,)
 // the contrast parameters; all contiguous float32 device buffers, src and
-// dst distinct. `variant` picks the block shape (0: the wrapper's; 1
-// kept to compare on the card). Launches on `stream` and returns
-// cudaGetLastError() (0 on success); never synchronises.
+// dst distinct. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); never synchronises.
 extern "C" int fed_steps(const float* src, int sy, int sx, int sH, int sW, float* dst, int dy,
                          int dx, int dH, int dW, const float* k, const float* taus, int steps,
-                         int variant, int B, void* stream) {
+                         int B, void* stream) {
   if (steps < 1 || steps > MAX_STEPS) return static_cast<int>(cudaErrorInvalidValue);
   Taus t{};
   for (int i = 0; i < steps; ++i) t.t[i] = taus[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 0: return launch_steps<V0>(steps, src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
-    case 1: return launch_steps<V1>(steps, src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  switch (steps) {
+    case 1: return launch<1>(src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
+    case 2: return launch<2>(src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
+    default: return launch<3>(src, sy, sx, sH, sW, dst, dy, dx, dH, dW, k, t, B, s);
   }
 }
 
-// Dynamic shared memory of one block of `variant` fusing `steps` steps
-// (bytes), or -1 for an unknown pair.
-extern "C" int fed_steps_smem_bytes(int steps, int variant) {
-  switch (variant) {
-    case 0: return smem_steps<V0>(steps);
-    case 1: return smem_steps<V1>(steps);
-    default: return -1;
-  }
+// Dynamic shared memory of one block fusing `steps` steps (bytes), or -1
+// outside 1..3.
+extern "C" int fed_steps_smem_bytes(int steps) {
+  return steps == 1   ? (int)smem_bytes<1>()
+         : steps == 2 ? (int)smem_bytes<2>()
+         : steps == 3 ? (int)smem_bytes<3>()
+                      : -1;
 }

@@ -55,10 +55,12 @@
 // registers per instance, no spills.
 //
 // Graph-replayed on an H100 80GB HBM3 at 700 W, against the first design
-// measured beside it (scripts/torch_kernels_ab.py): shi_tomasi 6.1 us at
-// 480x752 and 3.3 at 240x376 (0.54x per frame), fast 9.4 and 4.4,
-// _gradmag2 3.3; every family 0.48-0.68x. The floor under them: 0.9 us for a graph-replayed 4-byte fill, 1.8 us for a
-// 480x752 copy. Tried on the card and dropped (PERF.md): 384 threads for
+// measured beside it (PERF.md, runs 9 and 13): shi_tomasi 5.9-6.1 us at
+// 480x752 and 3.3 at 240x376 (0.53-0.54x per frame), fast 9.4 and 4.4,
+// _gradmag2 3.3; every family 0.48-0.68x. The floor under them: 0.9 us
+// for a graph-replayed 4-byte fill, 1.8 us for a 480x752 copy. The
+// response phases take 46-75% of a block's time (PERF.md, run 15).
+// Tried on the card and dropped (PERF.md): 384 threads for
 // 32-row tiles; the structure tensor's products once per pixel in their
 // own phase (a shared-memory round trip costlier than the products it
 // saves); the eigenvalue's square root as q * rsqrt(q) (it broke ties

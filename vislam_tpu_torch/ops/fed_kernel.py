@@ -64,8 +64,8 @@ def fed_evolve_plain(L, k, taus):
 
 
 HALO_PER_STEP = 4      # px one step reads around what it writes: blur 2 + Scharr 1 + flux 1
-STEPS_PER_LAUNCH = 3   # steps fused per launch, of the kernel's 1-4 (chosen on the card: PERF.md)
-TILE = (32, 32)        # the output tile of the kernel's block shape 0, rows x columns
+STEPS_PER_LAUNCH = 3   # steps fused per launch at most, the kernel's limit (chosen on the card: PERF.md)
+TILE = (32, 32)        # the kernel's output tile, rows x columns
 
 
 class FedLaunch(NamedTuple):
@@ -101,19 +101,17 @@ def _lib():
     fn = build.load("fed_evolve").fed_steps
     if fn.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [p, i, i, i, i, p, i, i, i, i, p, p, i, i, i, p]
+        fn.argtypes = [p, i, i, i, i, p, i, i, i, i, p, p, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def launch_schedule(x, kb, taus, s: int = STEPS_PER_LAUNCH, variant: int = 0):
-    """Run the kernel along fed_schedule(len(taus), s) on contiguous float32
+def _launch_schedule(x, kb, taus):
+    """Run the kernel along fed_schedule(len(taus)) on contiguous float32
     (B, H, W) CUDA fields x with k (B,); returns the evolved fields. The
-    call counts once in `fed_evolve.launches`. `s` and `variant` (the
-    kernel's block shape) differ from the defaults only where designs are
-    compared on the card (scripts/torch_kernels_ab.py)."""
+    call counts once in `fed_evolve.launches`."""
     B, H, W = x.shape
-    sched = fed_schedule(len(taus), s)
+    sched = fed_schedule(len(taus))
     e0 = sched[0].dst_ext
     bufs = [torch.empty(B * (H + 2 * e0) * (W + 2 * e0), dtype=torch.float32, device=x.device)
             for _ in range(min(len(sched) - 1, 2))]
@@ -128,7 +126,7 @@ def launch_schedule(x, kb, taus, s: int = STEPS_PER_LAUNCH, variant: int = 0):
             se, de = ln.src_ext, ln.dst_ext
             err = fn(src.data_ptr(), -se, -se, H + 2 * se, W + 2 * se,
                      dst.data_ptr(), -de, -de, H + 2 * de, W + 2 * de,
-                     kb.data_ptr(), t, ln.steps, variant, B, stream)
+                     kb.data_ptr(), t, ln.steps, B, stream)
             if err != 0:
                 raise RuntimeError(f"fed_evolve launch {j} ({ln}) failed: cudaError {err}")
             src = dst
@@ -165,7 +163,7 @@ def fed_evolve(L, k, taus):
         if n < 1 or B > 65535 or B * (H + 8 * n) * (W + 8 * n) >= 2 ** 31:
             raise ValueError(f"fed_evolve kernel: {n} steps on {tuple(x.shape)} "
                              "out of range")
-        out = launch_schedule(x, kb.contiguous(), taus)
+        out = _launch_schedule(x, kb.contiguous(), taus)
     else:
         raise ValueError(f"unsupported device {L.device}")
     return out if L.dim() == 3 else out[0]

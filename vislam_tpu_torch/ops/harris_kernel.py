@@ -146,11 +146,13 @@ def _lib():
     return fn
 
 
-def launch_kernel(x, detector: str, tile_rows: int = 0):
-    """(nms, resp) of contiguous float32 (B, H, W) CUDA images x from one
-    launch of the kernel, counted in `response_nms.launches`. tile_rows: 8,
-    16 or 32 rows per block, or 0 for the kernel's own choice from the
-    shape; chip_smoke.py compares the three on the card."""
+# Rows of the kernel's output tile it can be asked for; 0 lets it choose.
+TILE_ROWS = (0, 8, 16, 32)
+
+
+def _launch(x, detector: str, tile_rows: int):
+    """(nms, resp) of x, already checked by response_nms, from one launch of
+    the kernel, counted in `response_nms.launches`."""
     B, H, W = x.shape
     resp = torch.empty_like(x)
     nms_ = None if detector == "_gradmag2" else torch.empty_like(x)
@@ -164,18 +166,24 @@ def launch_kernel(x, detector: str, tile_rows: int = 0):
     return nms_, resp
 
 
-def response_nms(img, detector: str = "shi_tomasi", nms_radius: int = 2):
+def response_nms(img, detector: str = "shi_tomasi", nms_radius: int = 2, *,
+                 tile_rows: int = 0):
     """(..., H, W) float32 image(s) -> (nms, resp), same shape (nms None for
     `_gradmag2`).
 
     CPU tensor: the plain version. CUDA tensor: the hand-written kernel
     (5x5 NMS only), one launch per call, counted per family in
-    `response_nms.launches`; anything else raises.
+    `response_nms.launches`; anything else raises. `tile_rows` fixes the
+    kernel's tile height to 8, 16 or 32 rows, so that a check on the card
+    can reach each (the plain version has no tiles); 0, the default, lets
+    the kernel choose from the shape.
     """
     if detector not in FAMILIES:
         raise ValueError(f"unknown detector {detector!r}; one of {FAMILIES}")
     if img.dim() not in (2, 3):
         raise ValueError(f"expected (H, W) or (B, H, W), got {tuple(img.shape)}")
+    if tile_rows not in TILE_ROWS:
+        raise ValueError(f"tile_rows must be one of {TILE_ROWS}, got {tile_rows}")
     x = img if img.dim() == 3 else img[None]
     if img.device.type == "cpu":
         nms_, resp = response_nms_plain(x, detector, nms_radius)
@@ -189,7 +197,7 @@ def response_nms(img, detector: str = "shi_tomasi", nms_radius: int = 2):
         B, H, W = x.shape
         if B * H * W >= 2 ** 31 or B > 65535:
             raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's indexing")
-        nms_, resp = launch_kernel(x, detector)
+        nms_, resp = _launch(x, detector, tile_rows)
     else:
         raise ValueError(f"unsupported device {img.device}")
     if img.dim() == 2:
