@@ -14,25 +14,37 @@ Phases, each fatal on failure (exit code != 0, no result line):
      ((37, 53), (1, 752), (480, 1)) and a batch of two, every response
      family at each of its tile heights, FED on 1, 3, 5 and 12 steps and
      with a distinct k per field; the match kernel on ragged shapes,
-     all-invalid rows and columns and gates with empty discs;
-  3. paths: run_sequence_scan over a 480x752 synthetic sequence with GT
-     scale, K = 768, for each frontend the port runs:
-       default  SystemConfig() (Shi-Tomasi, SIFT), 60 frames
-       kaze     nonlinear scale space + hessian, 60 frames
-       akaze    nonlinear scale space + fast + BRIEF-256, 60 frames
-       harris   harris detector, 10 frames
-       dog      dog detector, 10 frames
+     all-invalid rows and columns and gates with empty discs; the batched
+     window-track match (the anchor, shared, against W window slots in one
+     call) at W = 10, ragged W, K and N, all-invalid slots and W = 1;
+  3. paths: run_sequence_scan over a 480x752 synthetic sequence, K = 768,
+     from the true initial state, for each frontend the port runs (GT
+     scale) and for the GT-free modes:
+       default    SystemConfig() (Shi-Tomasi, SIFT), 60 frames
+       kaze       nonlinear scale space + hessian, 60 frames
+       akaze      nonlinear scale space + fast + BRIEF-256, 60 frames
+       harris     harris detector, 10 frames
+       dog        dog detector, 10 frames
+       imu_scale  SystemConfig(), GT-free (IMU scale, the VI alignment),
+                  open loop, 60 frames
+       slam       GT-free with the in-step window VI-BA (vi_factors +
+                  refine_in_step: bench.py's slam configuration), 60 frames
      Each path resets every launch counter just before its run and reads
      them just after; it fails unless each of its kernels ran exactly the
      expected times per frame. Each checks finite poses, prints frames/s
      and the host syncs left inside a step (sync debug mode), and runs its
      first 10 frames again on the CPU (plain twins, same random draws) as
-     the reference the card must agree with. default and kaze also hold
-     ATE < 0.5 m, > 5 keyframes and > 90% of frames solved; the akaze
-     analog does not track on this sequence in the reference either, so
-     it has no accuracy bound;
+     the reference the card must agree with. default, kaze, imu_scale and
+     slam also hold ATE < 0.5 m, > 5 keyframes and > 90% of frames solved,
+     and the GT-free paths their latch by the last frame (imu_scale
+     vi_aligned, slam vi_engaged); the akaze analog does not track on this
+     sequence in the reference either, so it has no accuracy bound. Then
+     one refine_window call on the slam path's final (engaged) state, on
+     the card and on the CPU: refined poses within 1e-3 m, the window
+     VI-BA's iterations equal;
   4. stage times: for each 60-frame path, where a frame's wall time goes
-     (each stage alone, synchronised);
+     (each stage alone, synchronised; the GT-free paths add
+     vi_align_window, slam refine_window);
   5. kernel times: each kernel of phase 2 at its path's shapes, kernel and
      twin as 100 back-to-back calls between CUDA events (plain, kernel,
      kernel, plain); then each call under torch.profiler, whose device
@@ -42,9 +54,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
   6. report: one line per call with its times, its bound (the larger of the function's bytes over
      the HBM rate and its operations over the peak rate of their type:
      float32 on the CUDA cores, the match's a.b as 3xTF32 on the tensor
-     cores) and the share of the graph time the bound is;
-  7. traces: for each 60-frame path, torch.profiler over 10 frames: the
-     device busy share and the kernels by device time.
+     cores, the window match's, whose operands are bfloat16 values, as
+     one bfloat16 pass) and the share of the graph time the bound is;
+  7. traces: for each 60-frame path, torch.profiler over 5 frames (slam:
+     2): the device busy share, launches per frame and the kernels by
+     device time.
+Each phase prints its own wall time ("phase ...: s").
 
 Wall-clock timings come before graph capture and before any profiler
 run in the process: a profiler run was seen to leave the host slower at
@@ -55,7 +70,8 @@ The last two lines are the kernel table {"kernels": [...]} and
 {"ok": true, "device": {...}}. In the table, ms, plain_ms, graph_ms and
 bound_ms of a row are sums over the calls one frame makes (the two levels of
 a response family; FED's 4- and 8-step cycles; the ungated and gated match
-at K = 768), launches_per_call lists those calls' device launches, and
+at K = 768; the window match's one batched call), launches_per_call lists
+those calls' device launches, and
 library_ms is null: no single PyTorch call computes any of the three
 functions. Imports nothing of JAX.
 """
@@ -80,11 +96,11 @@ TILE_ROWS = (8, 16, 32)   # the response kernel's tile heights, each checked
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
 # dense): HBM bytes/s, float32 flop/s outside the tensor cores, and TF32
-# flop/s on the tensor cores. A kernel's bound is the larger of its
+# and bfloat16 flop/s on the tensor cores. A kernel's bound is the larger of its
 # function's bytes (inputs read once, outputs written once) over the HBM
 # rate and its operations, each type over its own rate, summed.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12}
+PEAK_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 # Float32 operations per output pixel of each response family, counted from
 # the function (vislam_tpu/ops/harris_kernel.py `_response_vmem` and the
 # 5x5 NMS) evaluated as written: an add, subtract, multiply, divide, min,
@@ -109,21 +125,54 @@ FED_FLOP_PER_PX_STEP = 61
 # multiply, subtract, max), the row top-2 2 and the column minimum 1
 # compares; gated, the disc test 6 more. a.b itself, 2 D per pair, runs at
 # float32 accuracy on the tensor cores only as 3xTF32 (three TF32 products).
+# The window match's operands are the bfloat16 bank's values (widened to
+# float32 exactly), so its a.b needs one bfloat16 pass: 2 D per pair at the
+# bfloat16 rate.
 MATCH_FLOP_PER_PAIR = 7
 GATE_FLOP_PER_PAIR = 6
 
-# frontend overrides, frames, whether accuracy is checked, and the launches
-# per frame each kernel (counter name) must show on that path
+
+@dataclasses.dataclass(frozen=True)
+class Path:
+    """A path: its frontend and backend overrides, GT or IMU scale, frames,
+    whether accuracy is checked, the launches per frame each kernel
+    (counter name) must show, and the state latch a GT-free run must have
+    set by its last frame."""
+
+    per_frame: dict
+    frames: int = N_FRAMES
+    accuracy: bool = True
+    frontend: dict = dataclasses.field(default_factory=dict)
+    backend: dict = dataclasses.field(default_factory=dict)
+    gt_scale: bool = True
+    latch: str = ""
+
+
 PATHS = {
-    "default": (dict(), N_FRAMES, True, {"shi_tomasi": 2, "match_top2": 2}),
-    "kaze": (dict(scale_space="nonlinear", detector="hessian"), N_FRAMES, True,
-             {"fed_evolve": 2, "hessian": 2, "_gradmag2": 1, "match_top2": 2}),
-    "akaze": (dict(scale_space="nonlinear", detector="fast", descriptor="brief"),
-              N_FRAMES, False,
-              {"fed_evolve": 2, "fast": 2, "_gradmag2": 1, "match_top2": 2}),
-    "harris": (dict(detector="harris"), N_SHORT, False, {"harris": 2, "match_top2": 2}),
-    "dog": (dict(detector="dog"), N_SHORT, False, {"dog": 2, "match_top2": 2}),
+    "default": Path({"shi_tomasi": 2, "match_top2": 2}),
+    "kaze": Path({"fed_evolve": 2, "hessian": 2, "_gradmag2": 1, "match_top2": 2},
+                 frontend=dict(scale_space="nonlinear", detector="hessian")),
+    "akaze": Path({"fed_evolve": 2, "fast": 2, "_gradmag2": 1, "match_top2": 2},
+                  accuracy=False, frontend=dict(scale_space="nonlinear", detector="fast",
+                                                descriptor="brief")),
+    "harris": Path({"harris": 2, "match_top2": 2}, N_SHORT, False,
+                   frontend=dict(detector="harris")),
+    "dog": Path({"dog": 2, "match_top2": 2}, N_SHORT, False, frontend=dict(detector="dog")),
+    # Open loop, vi_engaged needs window excitation >= 1.5 m/s, which this
+    # sequence does not reach (in the reference either): its latch is
+    # vi_aligned. The slam path also engages by the promotion deadline.
+    "imu_scale": Path({"shi_tomasi": 2, "match_top2": 2}, gt_scale=False, latch="vi_aligned"),
+    # Per frame: the per-frame and guided matches, then the window match
+    # (the one batched call).
+    "slam": Path({"shi_tomasi": 2, "match_top2": 3, "match_top2_batched": 1}, gt_scale=False,
+                 latch="vi_engaged",
+                 backend=dict(vi_factors=True, refine_in_step=True)),
 }
+SLAM_PATH = "slam"
+# Frames each 60-frame path's profiler trace covers: the trace's processing
+# grows with the launches (the slam path makes ~23k a frame), and it was
+# most of the run's time at 10 frames (3 on the slam path).
+TRACE_FRAMES = {"default": 5, "kaze": 5, "akaze": 5, "imu_scale": 5, SLAM_PATH: 2}
 
 
 def _fail(msg: str) -> None:
@@ -315,35 +364,45 @@ def ptxas_phase() -> None:
 
 
 def _counters():
-    """name -> (object whose `launches` holds the count, key or None)."""
+    """name -> (object, attribute that holds the count, key or None)."""
     from vislam_tpu_torch.ops.fed_kernel import fed_evolve
     from vislam_tpu_torch.ops.harris_kernel import FAMILIES, response_nms
     from vislam_tpu_torch.ops.match_kernel import match_top2
 
-    out = {fam: (response_nms, fam) for fam in FAMILIES}
-    out["fed_evolve"] = (fed_evolve, None)
-    out["match_top2"] = (match_top2, None)
+    out = {fam: (response_nms, "launches", fam) for fam in FAMILIES}
+    out["fed_evolve"] = (fed_evolve, "launches", None)
+    out["match_top2"] = (match_top2, "launches", None)
+    out["match_top2_batched"] = (match_top2, "batched_launches", None)
     return out
 
 
 def reset_launches() -> None:
-    for obj, key in _counters().values():
+    for obj, attr, key in _counters().values():
         if key is None:
-            obj.launches = 0
+            setattr(obj, attr, 0)
         else:
-            obj.launches[key] = 0
+            getattr(obj, attr)[key] = 0
 
 
 def read_launches() -> dict:
-    return {name: (obj.launches if key is None else obj.launches[key])
-            for name, (obj, key) in _counters().items()}
+    return {name: (getattr(obj, attr) if key is None else getattr(obj, attr)[key])
+            for name, (obj, attr, key) in _counters().items()}
 
 
-def _frontend(**overrides):
+def _config(path: Path):
     from vislam_tpu_torch.utils.config import SystemConfig
 
     base = SystemConfig()
-    return dataclasses.replace(base, frontend=dataclasses.replace(base.frontend, **overrides))
+    return dataclasses.replace(
+        base, frontend=dataclasses.replace(base.frontend, **path.frontend),
+        backend=dataclasses.replace(base.backend, **path.backend))
+
+
+def _to_device(tree, dev):
+    """Every tensor of a nested NamedTuple moved to `dev`."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[_to_device(x, dev) for x in tree])
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
 def _response_check(fam, label, x, k_nms, k_resp) -> float:
@@ -585,6 +644,56 @@ def _match_rows(seq, gate_px):
     return rows
 
 
+def _window_match_row(seq, W):
+    """The window-track match of engine/refine.py: the anchor keyframe's
+    descriptors, shared (stride 0), against a bank of W keyframes' in one
+    batched call, the bank bfloat16 as the window keeps it, widened to
+    float32 as refine widens it; timed. Then ragged W, K and N, slots
+    wholly invalid, and W = 1."""
+    from vislam_tpu_torch.frontend.features import extract_features
+    from vislam_tpu_torch.ops.match_kernel import match_top2, match_top2_plain
+    from vislam_tpu_torch.utils.config import FrontendConfig
+
+    feats = [extract_features(torch.as_tensor(seq["images"][3 * w]).to(DEV, torch.float32),
+                              FrontendConfig()) for w in range(W)]
+    bank = torch.stack([f.desc for f in feats]).to(torch.bfloat16).float()
+    masks = torch.stack([f.mask for f in feats])
+    a, ma = bank[W - 1], masks[W - 1]
+    K, D = a.shape
+    keep = (torch.arange(W, device=DEV) % 4 != 0)[:, None]
+    cases = [
+        (f"W={W} K={K} N={K} D={D} A shared", (a, ma, bank, masks), True),
+        (f"ragged W=3 K=700 N=333 D={D}", (a[:700], ma[:700], bank[:3, :333].contiguous(),
+                                           masks[:3, :333].contiguous()), False),
+        (f"W={W} slots 0, 4, 8 all invalid", (a, ma, bank, masks & keep), False),
+        (f"W=1 K={K} D={D}", (a, ma, bank[:1], masks[:1]), False),
+    ]
+    err_max, measures = 0.0, []
+    for label, args, timed in cases:
+        k = match_top2(*args)
+        p = match_top2_plain(*args)
+        torch.cuda.synchronize()
+        for w in range(args[2].shape[0]):
+            err_max = max(err_max, _match_check(f"window {label} slot {w}", D,
+                                                [x[w] for x in k], [x[w] for x in p],
+                                                args[3][w]))
+        if not timed:
+            continue
+        Wb, N = args[2].shape[:2]
+        # The function reads A and its mask once, every slot's B and mask,
+        # and writes min1, min2, arg1 (K each) and colarg (N) per slot.
+        nbytes = (4 * D + 1) * (K + Wb * N) + Wb * (12 * K + 4 * N)
+        measures.append(_measure(
+            f"match_top2 window {label}", lambda a=args: match_top2_plain(*a),
+            lambda a=args: match_top2(*a), nbytes,
+            [(2 * Wb * K * N * D, "bf16", f"bfloat16 a.b 2 x {Wb} x {K} x {N} x {D}"),
+             (MATCH_FLOP_PER_PAIR * Wb * K * N, "fp32",
+              f"{MATCH_FLOP_PER_PAIR} x {Wb} x {K} x {N} per pair")], 2))
+    return _row("match_top2:window", "match_top2_batched",
+                "vislam_tpu_torch/ops/csrc/match_top2.cu",
+                "vislam_tpu/ops/match_kernel.py:126", err_max, measures)
+
+
 def kernel_phase(seq, cfg_default):
     """Each kernel against its plain twin at main-path shapes and data."""
     # argmin keeps the first index on ties on the card, as on the CPU.
@@ -592,12 +701,15 @@ def kernel_phase(seq, cfg_default):
     if int(torch.argmin(d)) != 1 or int(torch.argmin(d.reshape(5, 1), dim=0)[0]) != 1:
         _fail("torch.argmin does not keep the first index on ties on the card")
     return (_response_rows(seq) + [_fed_row(seq)]
-            + _match_rows(seq, cfg_default.frontend.guided_fallback_px))
+            + _match_rows(seq, cfg_default.frontend.guided_fallback_px)
+            + [_window_match_row(seq, cfg_default.backend.window_size)])
 
 
 def stage_times(name, eng, state, inputs):
     """Where a frame's wall time goes: each stage alone, synchronised."""
+    from vislam_tpu_torch.engine.bootstrap import vi_align_window
     from vislam_tpu_torch.engine.engine import frame_generator
+    from vislam_tpu_torch.engine.refine import refine_window
     from vislam_tpu_torch.frontend.detect import detect_keypoints
     from vislam_tpu_torch.frontend.features import extract_features
     from vislam_tpu_torch.frontend.match import match_descriptors
@@ -625,9 +737,12 @@ def stage_times(name, eng, state, inputs):
 
     pyr = scale_space()
 
-    def wall_ms(fn, iters=20):
+    def wall_ms(fn):
+        """Mean of 20 calls after one (5 where that one took over 0.1 s)."""
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        iters = 20 if time.perf_counter() - t0 < 0.1 else 5
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -648,21 +763,32 @@ def stage_times(name, eng, state, inputs):
             kf.desc, kf.mask, feat.desc, feat.mask),
         "ransac_translation (512 x 768)": lambda: ransac_translation(
             rays, rays.roll(1, 0), R, kf.mask, uv_i=kf.uv, dispersion_pow=1.25, noise=noise),
-        "whole step": lambda: eng.step(state, img, imu, dt, 0.1),
     }
+    en, c = eng.cfg.engine, eng.calib
+    if not inputs.use_gt_scale:
+        stages["vi_align_window (every frame)"] = lambda: vi_align_window(
+            state, eng.R_bc, en.gravity, min_factors=en.vi_align_min_factors,
+            min_excitation=en.vi_align_min_excitation,
+            engage_min_excitation=en.vi_engage_min_excitation)
+    if eng.cfg.backend.refine_in_step:
+        stages[f"refine_window (every frame, {eng.cfg.backend.lm_iters} LM steps)"] = \
+            lambda: refine_window(state, eng.cfg, c.fx, c.fy, c.cx, c.cy, R_bc=eng.R_bc)
+    stages["whole step"] = lambda: eng.step(state, img, imu, dt,
+                                            0.1 if inputs.use_gt_scale else -1.0)
     for stage, fn in stages.items():
         print(f"profile {name}: {stage}: {wall_ms(fn):.2f} ms wall", flush=True)
 
 
 def trace_path(name, eng, state, inputs):
-    """A torch.profiler pass over 10 frames: the device busy share and the
-    kernels by device time."""
+    """A torch.profiler pass over TRACE_FRAMES frames: the device busy share
+    and the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from vislam_tpu_torch.engine import run_sequence_scan
 
-    sub = inputs._replace(images=inputs.images[:10], imu=inputs.imu[:10],
-                          imu_dt=inputs.imu_dt[:10], gt_pos=inputs.gt_pos[:10])
+    n = TRACE_FRAMES[name]
+    sub = inputs._replace(images=inputs.images[:n], imu=inputs.imu[:n],
+                          imu_dt=inputs.imu_dt[:n], gt_pos=inputs.gt_pos[:n])
     run_sequence_scan(eng, state, sub)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -675,14 +801,14 @@ def trace_path(name, eng, state, inputs):
     # launched as well, so summing every row counts each kernel twice.
     dev_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                  for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"profile {name}: profiled 10 frames: wall {wall * 1e3:.1f} ms, device busy "
+    n_launch = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
+    print(f"profile {name}: profiled {n} frames: wall {wall * 1e3:.1f} ms, device busy "
           f"{dev_us / 1e3:.1f} ms ({dev_us / 1e6 / wall:.3f} of wall), "
-          f"{sum(e.count for e in events if e.key.startswith('cudaLaunchKernel'))} "
-          f"kernel launches", flush=True)
+          f"{n_launch} kernel launches ({n_launch / n:.0f} per frame)", flush=True)
     print(events.table(sort_by="self_cuda_time_total", row_limit=15), flush=True)
 
 
-def _host_syncs(eng, state, inputs) -> list:
+def _host_syncs(eng, state, inputs, gt_t_norm) -> list:
     """Synchronizing calls inside one step under CUDA sync debug mode, each
     located by the port's innermost frame on the Python stack."""
     import traceback
@@ -700,7 +826,7 @@ def _host_syncs(eng, state, inputs) -> list:
         warnings.simplefilter("always")
         warnings.showwarning = locate
         torch.cuda.set_sync_debug_mode("warn")
-        eng.step(state, inputs.images[0], inputs.imu[0], inputs.imu_dt[0], 0.1)
+        eng.step(state, inputs.images[0], inputs.imu[0], inputs.imu_dt[0], gt_t_norm)
         torch.cuda.set_sync_debug_mode("default")
     return syncs
 
@@ -714,15 +840,16 @@ def path_phase(name, seq):
     from vislam_tpu_torch.eval import ate_rmse
     from vislam_tpu_torch.frontend.pose import gumbel_noise
 
-    overrides, N, accuracy, per_frame = PATHS[name]
-    cfg = _frontend(**overrides)
+    path = PATHS[name]
+    N = path.frames
+    cfg = _config(path)
     eng = VIOEngine(seq["calib"], cfg, device=DEV)
 
     def init(e):
         return e.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0],
                             v_w0=seq["gt_vel"][0], p_w0=seq["gt_pos"][0])
 
-    inputs = make_sequence_inputs(seq, 1, 1 + N, device=DEV)
+    inputs = make_sequence_inputs(seq, 1, 1 + N, use_gt_scale=path.gt_scale, device=DEV)
     # Warm-up on a short prefix (first-use library loads, allocator growth).
     run_sequence_scan(eng, init(eng), inputs._replace(
         images=inputs.images[:3], imu=inputs.imu[:3], imu_dt=inputs.imu_dt[:3],
@@ -757,28 +884,34 @@ def path_phase(name, seq):
     poses = np.concatenate([seq["gt_pos"][:1], p])
     ate = ate_rmse(poses, seq["gt_pos"][: N + 1], align=False)
     solved = float(((ni >= 8) & (nm > 50)).mean())
+    what = {**path.frontend, **path.backend} or "default SystemConfig"
     print(f"path {name}: {N} frames in {elapsed:.3f} s = {N / elapsed:.2f} frames/s "
-          f"({overrides or 'default SystemConfig'}, K={cfg.frontend.max_keypoints}, 480x752, "
-          f"GT scale); ATE {ate:.4f} m; keyframes {int(kf.sum())}; solved {solved:.3f}; "
+          f"({what}, K={cfg.frontend.max_keypoints}, 480x752, "
+          f"{'GT scale' if path.gt_scale else 'IMU scale, GT-free'}); ATE {ate:.4f} m; "
+          f"keyframes {int(kf.sum())}; solved {solved:.3f}; vi_aligned "
+          f"{bool(state.vi_aligned)}, vi_engaged {bool(state.vi_engaged)}, bootstrap applies "
+          f"{int(state.bootstrap_applies)}; "
           f"median matches {float(np.median(nm)):.0f}, inliers {float(np.median(ni)):.0f}; "
           f"rescues {int(res.used_fallback.sum())}; peak device memory {peak_mb:.1f} MiB; "
           f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
     if len(fps) > 1:
         print(f"path {name}: frames/s over {len(fps)} runs {[round(f, 2) for f in fps]}, "
               f"median {float(np.median(fps)):.2f}", flush=True)
-    if accuracy:
+    if path.latch and not bool(getattr(state, path.latch)):
+        _fail(f"{name}: {path.latch} not latched by frame {N}")
+    if path.accuracy:
         if not ate < 0.5:
             _fail(f"{name}: ATE {ate} >= 0.5 m")
         if not kf.sum() > 5:
             _fail(f"{name}: only {int(kf.sum())} keyframes")
         if not solved > 0.9:
             _fail(f"{name}: only {solved:.3f} of frames solved")
-    for counter, n in per_frame.items():
+    for counter, n in path.per_frame.items():
         if launches[counter] != n * N:
             _fail(f"{name}: {counter} launched {launches[counter]} times over {N} frames "
                   f"(expected {n} per frame)")
 
-    syncs = _host_syncs(eng, state, inputs)
+    syncs = _host_syncs(eng, state, inputs, 0.1 if path.gt_scale else -1.0)
     print(f"path {name}: host syncs inside one step: {len(syncs)} {sorted(set(syncs))}",
           flush=True)
     if syncs:
@@ -815,6 +948,46 @@ def path_phase(name, seq):
     return launches, ((eng, state, inputs) if N == N_FRAMES else None)
 
 
+def refine_check(eng, state) -> None:
+    """One refine_window call on the slam path's final state (VI-BA
+    engaged), on the card and on the CPU from the same state: the refined
+    window poses and the anchor within 1e-3 m. Then the window VI-BA alone
+    on one problem (built on the CPU, copied to the card): the same number
+    of LM iterations on both."""
+    from vislam_tpu_torch.engine.refine import build_window_problem, refine_window, window_ba
+
+    cfg, c = eng.cfg, eng.calib
+    if not bool(state.vi_engaged):
+        _fail("refine check: the slam path's final state is not engaged")
+    cpu_state = _to_device(state, "cpu")
+    out_g = refine_window(state, cfg, c.fx, c.fy, c.cx, c.cy, R_bc=eng.R_bc)
+    out_c = refine_window(cpu_state, cfg, c.fx, c.fy, c.cx, c.cy, R_bc=eng.R_bc.cpu())
+
+    def positions(s):
+        return -torch.einsum("wji,wj->wi", s.window.R_cw, s.window.t_cw).cpu()
+
+    moved = (positions(out_c) - positions(cpu_state)).abs().max().item()
+    dp = max((positions(out_g) - positions(out_c)).abs().max().item(),
+             (out_g.p_wc.cpu() - out_c.p_wc).abs().max().item())
+    ba_state, prob, _ = build_window_problem(cpu_state, cfg, c.fx, c.fy, c.cx, c.cy)
+    info_c = window_ba(cpu_state, cfg, ba_state, prob, eng.R_bc.cpu())[-1]
+    info_g = window_ba(state, cfg, _to_device(ba_state, DEV), _to_device(prob, DEV),
+                       eng.R_bc)[-1]
+    its = (int(info_g["iters_run"]), int(info_c["iters_run"]))
+    costs = (float(info_g["final_cost"]), float(info_c["final_cost"]),
+             float(info_c["initial_cost"]))
+    print(f"refine check: refine_window card vs CPU: max |dp| {dp:.3e} m (the refine moved the "
+          f"window {moved:.3e} m); window VI-BA on one problem: iterations card {its[0]}, CPU "
+          f"{its[1]}; final cost card {costs[0]:.6g}, CPU {costs[1]:.6g} (initial "
+          f"{costs[2]:.6g}); {int(prob.obs_mask.sum())} observations", flush=True)
+    if not dp <= 1e-3 or its[0] != its[1]:
+        _fail("refine check: the card's window refine disagrees with the CPU's")
+
+
+def _phase(name, t0) -> None:
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA card")
@@ -846,26 +1019,39 @@ def main() -> None:
     print(f"data: {N_FRAMES + 1} frames 480x752 in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    t0 = time.perf_counter()
     rows = kernel_phase(seq, SystemConfig())
+    _phase("kernels", t0)
     # Each row's launches come from the run of the path that uses it (the
     # D = 128 match from the default path, D = 256 from the akaze path).
     row_path = {"response_nms:shi_tomasi": "default", "response_nms:harris": "harris",
                 "response_nms:dog": "dog", "response_nms:hessian": "kaze",
                 "response_nms:fast": "akaze", "response_nms:_gradmag2": "kaze",
                 "fed_evolve": "kaze", "match_top2:d128": "default",
-                "match_top2:d256": "akaze"}
+                "match_top2:d256": "akaze", "match_top2:window": SLAM_PATH}
     launches, profiled = {}, {}
     for name in PATHS:
+        t0 = time.perf_counter()
         launches[name], ctx = path_phase(name, seq)
         if ctx is not None:
             profiled[name] = ctx
+        _phase(f"path {name}", t0)
+    t0 = time.perf_counter()
+    refine_check(*profiled[SLAM_PATH][:2])
+    _phase("refine check", t0)
     # The order of what follows: see the module's docstring.
+    t0 = time.perf_counter()
     for name, ctx in profiled.items():
         stage_times(name, *ctx)
+    _phase("stage times", t0)
+    t0 = time.perf_counter()
     timing_phase(rows)
     report_phase(rows)
+    _phase("kernel times", t0)
     for name, ctx in profiled.items():
+        t0 = time.perf_counter()
         trace_path(name, *ctx)
+        _phase(f"trace {name}", t0)
     for row in rows:
         row["launches"] = launches[row_path[row["name"]]][row["counter"]]
 

@@ -348,3 +348,70 @@ def test_match_descriptors_d256_matches_reference():
     np.testing.assert_array_equal(t.mask.numpy(), jm)
     np.testing.assert_array_equal(t.idx_b.numpy(), np.asarray(j.idx_b))
     np.testing.assert_array_equal(t.dist.numpy(), np.asarray(j.dist))
+
+
+def _window_bank(W, K, N, seed=0):
+    """An anchor set A (K, 128) and a window bank of W sets (W, N, 128), each
+    a noisy permutation of A (as _pair makes B), in bfloat16 as the window
+    keeps them, with invalid rows; slot 1 wholly invalid (a slot not yet
+    filled)."""
+    rng = np.random.default_rng(seed)
+    a, _, ma, _, _, _ = _pair(K, seed=seed)
+    bank, masks = [], []
+    for w in range(W):
+        b = a[rng.permutation(K)[:N]] + 0.25 * rng.normal(size=(N, 128)) / np.sqrt(128)
+        bank.append(b / np.linalg.norm(b, axis=-1, keepdims=True))
+        masks.append((rng.uniform(size=N) > 0.1) & (w != 1))
+    return (jnp.asarray(a, jnp.bfloat16), ma,
+            jnp.asarray(np.stack(bank).astype(np.float32), jnp.bfloat16), np.stack(masks))
+
+
+def _widened(x):
+    return torch.from_numpy(np.asarray(x.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("W,K,N", [(10, 768, 768), (3, 700, 333)])
+def test_batched_window_match_matches_vmapped_reference(W, K, N):
+    """The window-track match of engine/refine.py: the anchor A, shared,
+    against W window sets in one batched call, on the bfloat16 bank the
+    reference vmaps match_descriptors over (f32 accumulation of bf16
+    products; the port widens the bank to float32, which is exact). idx_b
+    and mask exact on every row away from near-ties, the all-invalid slot
+    matching nothing; the batched twin equals W single-pair calls."""
+    import jax
+
+    a16, ma, bank16, masks = _window_bank(W, K, N)
+    ref = jax.vmap(lambda d, m: j_match(a16, jnp.asarray(ma), d, m, ratio=0.8, mutual=True))(
+        bank16, jnp.asarray(masks))
+    a, bank = _widened(a16), _widened(bank16)
+    got = t_match(a, _t(ma), bank, _t(masks), ratio=0.8, mutual=True)
+    assert got.idx_b.shape == (W, K) and got.mask.shape == (W, K)
+    min1, min2, arg1, col = match_top2_plain(a, _t(ma), bank, _t(masks))
+    # Rows with no candidate hold 1e9 throughout: exact on both sides.
+    untied = _untied(min1.numpy(), min2.numpy()) | (min1.numpy() >= 5e8)
+    assert untied.mean() > 0.99
+    np.testing.assert_array_equal(got.mask.numpy()[untied], np.asarray(ref.mask)[untied])
+    sel = untied & got.mask.numpy()
+    np.testing.assert_array_equal(got.idx_b.numpy()[sel], np.asarray(ref.idx_b)[sel])
+    assert not got.mask[1].any() and got.mask.sum() > 0.5 * (W - 1) * min(K, N)
+    for w in range(W):
+        one = match_top2_plain(a, _t(ma), bank[w], _t(masks[w]))
+        for x, y in zip((min1[w], min2[w]), one[:2]):
+            np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=1e-5, atol=1e-6)
+        assert torch.equal(arg1[w][_t(untied[w])], one[2][_t(untied[w])])
+
+
+def test_batched_twin_with_ties_equals_single_calls():
+    """The shared A against Bt sets equals Bt single-pair calls on BRIEF-like
+    descriptors, whose distances are exact and tie often: equal on every
+    row and column, ties included."""
+    rng = np.random.default_rng(4)
+    Bt, K, N = 3, 96, 80
+    a = (rng.integers(0, 2, (K, 256)) * 2 - 1).astype(np.float32) / 16
+    b = (rng.integers(0, 2, (Bt, N, 256)) * 2 - 1).astype(np.float32) / 16
+    ma, mb = rng.uniform(size=K) > 0.2, rng.uniform(size=(Bt, N)) > 0.2
+    batched = match_top2_plain(_t(a), _t(ma), _t(b), _t(mb))
+    for i in range(Bt):
+        one = match_top2_plain(_t(a), _t(ma), _t(b[i]), _t(mb[i]))
+        for x, y in zip(batched, one):
+            assert torch.equal(x[i], y)

@@ -1,1 +1,2 @@
-"""Triangulation (port of vislam_tpu.backend.triangulate)."""
+"""Triangulation and the window bundle adjustments (port of vislam_tpu.backend:
+triangulate, ba, vi_ba)."""

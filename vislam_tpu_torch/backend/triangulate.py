@@ -11,22 +11,24 @@ def triangulate_midpoint(rays_i, rays_j, R_ji, t_ji):
 
     d_j x_j = d_i (R_ji x_i) + t_ji: solve the 2x2 normal equations for
     (d_i, d_j) per match; the point is the midpoint of the two closest
-    points. Returns (X_i (M,3), depth_i (M,), depth_j (M,), gap (M,)).
+    points. R_ji (3,3), t_ji (3,) serve every ray pair, or R_ji (M,3,3),
+    t_ji (M,3) give each pair its own. Returns (X_i (M,3), depth_i (M,),
+    depth_j (M,), gap (M,)).
     """
-    rot = rays_i @ R_ji.T
+    rot = torch.einsum("...ij,...j->...i", R_ji, rays_i)
     a = torch.sum(rot * rot, -1)
     b = -torch.sum(rot * rays_j, -1)
     c = torch.sum(rays_j * rays_j, -1)
-    rhs1 = -torch.sum(rot * t_ji[None, :], -1)
-    rhs2 = torch.sum(rays_j * t_ji[None, :], -1)
+    rhs1 = -torch.sum(rot * t_ji, -1)
+    rhs2 = torch.sum(rays_j * t_ji, -1)
     det = a * c - b * b
     safe_det = torch.where(det.abs() > 1e-12, det, torch.full_like(det, 1e-12))
     d_i = (c * rhs1 - b * rhs2) / safe_det
     d_j = (a * rhs2 - b * rhs1) / safe_det
 
-    p_on_i = d_i[:, None] * rot + t_ji[None, :]
+    p_on_i = d_i[:, None] * rot + t_ji
     p_on_j = d_j[:, None] * rays_j
     gap = torch.linalg.vector_norm(p_on_i - p_on_j, dim=-1)
     mid_j = 0.5 * (p_on_i + p_on_j)
-    X_i = (mid_j - t_ji[None, :]) @ R_ji
+    X_i = torch.einsum("...ji,...j->...i", R_ji, mid_j - t_ji)
     return X_i, d_i, d_j, gap

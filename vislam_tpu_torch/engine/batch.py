@@ -4,7 +4,8 @@ step looped over a sequence staged on the device.
 The reference runs the frame loop as one lax.scan; here it is a Python loop
 over frames whose inputs already live on the device, with the GT-scale
 bookkeeping (distance since the last keyframe) carried on the device too,
-so no frame waits on the host.
+so no frame waits on the host. GT-free sequences (use_gt_scale False) run
+every frame on the IMU scale (the reference's gt_norm = -1).
 """
 
 from __future__ import annotations
@@ -14,7 +15,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from vislam_tpu_torch.engine.engine import FrameResult, VIOEngine, frame_generator
+from vislam_tpu_torch.engine.engine import (
+    FrameResult,
+    VIOEngine,
+    frame_generator,
+    require_device,
+)
 from vislam_tpu_torch.engine.state import EngineState
 
 
@@ -31,8 +37,10 @@ class SequenceInputs(NamedTuple):
 def make_sequence_inputs(seq: dict, start: int = 1, end: Optional[int] = None,
                          imu_window: int = 16, use_gt_scale: bool = True,
                          imu_rate: float = 200.0, cam_rate: float = 20.0,
-                         *, device) -> SequenceInputs:
-    """Stage a synthetic-generator dict (`data/synthetic.py`) on `device`."""
+                         *, device="cuda") -> SequenceInputs:
+    """Stage a synthetic-generator dict (`data/synthetic.py`) on `device`
+    (the card unless the caller asks for another)."""
+    device = require_device(device)
     end = len(seq["images"]) if end is None else end
     spf = int(round(imu_rate / cam_rate))
     N = end - start
@@ -63,18 +71,15 @@ def run_sequence_scan(eng: VIOEngine, state0: EngineState, inputs: SequenceInput
 
     Returns (final_state, FrameResult with leading dim N). Frame n draws its
     RANSAC hypotheses from `frame_generator(seed, n)`, or takes
-    noises[n] = (noise, noise_rescue) when given. GT scale only.
+    noises[n] = (noise, noise_rescue) when given.
     """
-    if not inputs.use_gt_scale:
-        raise NotImplementedError("GT-free (IMU-scale) sequences are not ported yet "
-                                  "(ROADMAP.md queue 1, GT-free supervision)")
     state = state0
     kf_gt_pos = state0.p_wc.clone() if kf_gt_pos0 is None else \
         torch.as_tensor(kf_gt_pos0, dtype=torch.float32).to(eng.device)
     results = []
     for n in range(inputs.images.shape[0]):
         gt_p = inputs.gt_pos[n]
-        gt_norm = torch.linalg.vector_norm(gt_p - kf_gt_pos)
+        gt_norm = torch.linalg.vector_norm(gt_p - kf_gt_pos) if inputs.use_gt_scale else -1.0
         noise, noise_rescue = (None, None) if noises is None else noises[n]
         state, res = eng._step(state, inputs.images[n], inputs.imu[n], inputs.imu_dt[n],
                                gt_norm, frame_generator(seed, n, eng.device),

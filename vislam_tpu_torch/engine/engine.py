@@ -1,20 +1,23 @@
-"""The VIO engine: the per-frame step (port of `vislam_tpu/engine/engine.py`,
-GT-scale mode, any frontend but the oriented and always-gated ones).
+"""The VIO engine: the per-frame step (port of `vislam_tpu/engine/engine.py`:
+GT scale or GT-free IMU scale, open loop or SLAM mode, any frontend but the
+oriented and always-gated ones).
 
 One frame: Madgwick attitude + IMU preintegration, feature extraction,
 descriptor match against the keyframe, IMU-rotation-compensated translation
 RANSAC and its sign, the guided rescue re-match, disparity, gyro/accel bias
 recalibration, the shadow depth chain, pose composition, the keyframe
-policy and the window promotion.
+policy and the window promotion; GT-free, the linear VI alignment of the
+window (`engine/bootstrap.py`); in SLAM mode (`backend.refine_in_step`),
+the window (VI-)BA (`engine/refine.py`).
 
 No host sync inside a frame: every `lax.cond` of the reference on a device
-value (the rescue, the promotion) computes both branches and selects with
-`torch.where`, and no value on the device steers Python control flow. So
-the rescue's gated re-match and RANSAC run on every frame.
+value (the rescue, the promotion, the alignment, the in-step refine)
+computes both branches and selects with `torch.where`, and no value on the
+device steers Python control flow. So the rescue's gated re-match and
+RANSAC, the alignment and the window BA run on every frame.
 
 Configurations this port does not cover yet raise NotImplementedError at
-construction (see `_check_supported`); a GT-free (IMU-scale) step raises at
-the call.
+construction (see `_check_supported`).
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ import torch
 from vislam_tpu_torch import lie
 from vislam_tpu_torch.backend.triangulate import triangulate_midpoint
 from vislam_tpu_torch.calib.camera_model import CameraCalib, unproject_pixels
-from vislam_tpu_torch.engine.state import EngineState, init_state
+from vislam_tpu_torch.engine.bootstrap import vi_align_window
+from vislam_tpu_torch.engine.refine import check_gauge, refine_window
+from vislam_tpu_torch.engine.state import EngineState, init_state, tree_where
 from vislam_tpu_torch.frontend.descriptor import DescriptorGeometry
 from vislam_tpu_torch.frontend.features import Features, extract_features
 from vislam_tpu_torch.frontend.match import match_descriptors
@@ -98,8 +103,6 @@ def _check_supported(cfg: SystemConfig, device: torch.device) -> None:
          "queue 1, frontend variants (essential-matrix rotation)"),
         (en.photometric_refine, "engine.photometric_refine",
          "queue 1, frontend variants (photometric refine)"),
-        (be.refine_in_step, "backend.refine_in_step", "queue 1, slice 2 (SLAM mode)"),
-        (be.vi_factors, "backend.vi_factors", "queue 1, slice 2 (SLAM mode)"),
         (fe.oriented, "frontend.oriented", "queue 1, frontend variants (oriented SIFT)"),
         (fe.guided_gate_px > 0, "frontend.guided_gate_px",
          "queue 1, frontend variants (always-on guided matching)"),
@@ -109,17 +112,29 @@ def _check_supported(cfg: SystemConfig, device: torch.device) -> None:
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+    check_gauge(be.online_gauge)
+
+
+def require_device(device) -> torch.device:
+    """torch.device(device), refusing a CUDA device where there is none
+    (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' asked for, but no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    return device
 
 
 class VIOEngine:
     """Host wrapper owning the static config, the device and the constants
-    the step needs on it. `device` is explicit: nothing is auto-detected and
-    no path falls back to another device."""
+    the step needs on it. The device is the card unless the caller asks for
+    another (`device="cpu"`); nothing is auto-detected and no path falls
+    back to another device."""
 
     def __init__(self, calib: CameraCalib, cfg: SystemConfig = SystemConfig(),
-                 seed: int = 0, *, device):
-        self.device = torch.device(device)
-        _check_supported(cfg, self.device)
+                 seed: int = 0, *, device="cuda"):
+        _check_supported(cfg, torch.device(device))
+        self.device = require_device(device)
         self.calib = calib
         self.cfg = cfg
         self.seed = seed
@@ -152,17 +167,14 @@ class VIOEngine:
 
     def step(self, state: EngineState, image, imu, imu_dt, gt_t_norm: float = -1.0,
              noise=None, noise_rescue=None):
-        """Process one frame with GT scale (gt_t_norm >= 0, a host float).
+        """Process one frame. gt_t_norm (a host float): the GT distance since
+        the last keyframe (GT scale), or < 0 for the IMU (GT-free) scale.
 
         noise / noise_rescue: optional (2, H, M) Gumbel noise for the main
         and the rescue RANSAC draws; drawn from this frame's generator
         (`frame_generator(seed, frame index)`) when not given.
         """
         gt_t_norm = float(gt_t_norm)
-        if gt_t_norm < 0:
-            raise NotImplementedError(
-                "GT-free (IMU-scale) steps are not ported yet "
-                "(ROADMAP.md queue 1, GT-free supervision)")
         gen = frame_generator(self.seed, self._step_counter, self.device)
         self._step_counter += 1
         return self._step(state, self._to_device(image), self._to_device(imu),
@@ -170,7 +182,9 @@ class VIOEngine:
 
     def _step(self, state: EngineState, image, imu, imu_dt, gt_t_norm,
               gen: torch.Generator, noise=None, noise_rescue=None):
-        """The step body. gt_t_norm: a float or a () device tensor, >= 0."""
+        """The step body. gt_t_norm: a () device tensor or a float, >= 0 (GT
+        scale), or a negative float (GT-free: IMU scale, the alignment)."""
+        gt_free = not torch.is_tensor(gt_t_norm) and gt_t_norm < 0
         cfg = self.cfg
         fe, be, en = cfg.frontend, cfg.backend, cfg.engine
         calib = self.calib
@@ -241,8 +255,9 @@ class VIOEngine:
             # re-solve; taken when the ungated solve is catastrophic (inlier
             # floor, or a direction far from the IMU's while the IMU says
             # the camera moved) AND the gated solve wins decisively. Both
-            # branches run; the choice is a select. GT-scale steps only, so
-            # the direction-improvement acceptance channel is always open.
+            # branches run; the choice is a select. The direction-improvement
+            # acceptance channel is GT scale only: GT-free, the IMU would be
+            # both the arbiter and the scale source.
             cos_est = torch.dot(t_dir, t_pred_dir)
             dir_trig = (imu_t_norm > fe.fallback_dir_min_norm) & (cos_est < fe.fallback_dir_cos)
             triggered = ((est_inliers < fe.fallback_trigger_inliers) | dir_trig) \
@@ -267,9 +282,12 @@ class VIOEngine:
             t_g = resolve_direction_sign(rays_i, rj_g, R_ji_imu, est_g.t_dir,
                                          est_g.inlier_mask)
             cos_g = torch.dot(t_g, t_pred_dir)
-            better = (est_g.num_inliers > fe.fallback_win_margin * est_inliers) | (
-                dir_trig & (cos_g > cos_est + 0.15)
-                & (est_g.num_inliers >= torch.clamp((0.7 * est_inliers).to(torch.int32), min=8)))
+            better = est_g.num_inliers > fe.fallback_win_margin * est_inliers
+            if not gt_free:
+                better = better | (
+                    dir_trig & (cos_g > cos_est + 0.15)
+                    & (est_g.num_inliers
+                       >= torch.clamp((0.7 * est_inliers).to(torch.int32), min=8)))
             take = triggered & better
 
             def sel(a, b):
@@ -347,7 +365,8 @@ class VIOEngine:
             s_unseeded = torch.clamp(imu_t_norm, 0.005, 0.5)
             s_fallback = torch.where(state.shadow_scale > 0.0, state.shadow_scale, s_unseeded)
             s_shadow = torch.where(s_chain_ok, s_med, s_fallback)
-        t_ji = t_dir * gt_t_norm  # GT scale; frame-j coords: X_j = R_ji X_i + t_ji
+        # GT or IMU scale; frame-j coords: X_j = R_ji X_i + t_ji
+        t_ji = t_dir * (imu_t_norm if gt_free else gt_t_norm)
 
         # ---------------- relative pose -> world pose
         R_cw_i = state.kf_R_wc.T
@@ -381,10 +400,15 @@ class VIOEngine:
         t_since_kf = state.kf_time + T
 
         # Velocity: vision displacement since the keyframe over the time
-        # since it (solved), else IMU propagation; rate-limited and clamped.
-        v_vis = (p_wc_j - state.kf_p_wc) / torch.clamp(t_since_kf, min=1e-3)
+        # since it (solved, GT scale), else IMU propagation (GT-free the
+        # velocity is the scale source and must not be re-estimated from
+        # the IMU-scaled vision); rate-limited and clamped.
         v_imu = state.v_w + g_w * T + (R_wb_prev @ pre.dv)
-        v_new = torch.where(solved, v_vis, v_imu)
+        if gt_free:
+            v_new = v_imu
+        else:
+            v_vis = (p_wc_j - state.kf_p_wc) / torch.clamp(t_since_kf, min=1e-3)
+            v_new = torch.where(solved, v_vis, v_imu)
         dv_max = 20.0 * torch.clamp(T, min=1e-3)
         v_new = state.v_w + torch.clamp(v_new - state.v_w, min=-dv_max, max=dv_max)
         v_new = torch.clamp(v_new, -en.max_velocity, en.max_velocity)
@@ -454,7 +478,15 @@ class VIOEngine:
         zero33 = torch.zeros((3, 3), dtype=torch.float32, device=self.device)
         zero3 = torch.zeros(3, dtype=torch.float32, device=self.device)
         evict = is_kf & full
-        true_ = torch.ones((), dtype=torch.bool, device=self.device)
+        # GT-scale steps are metric by construction: both latches set. GT-free
+        # they latch in the alignment; under VI-BA the promotion-count
+        # deadline also engages.
+        vi_aligned = vi_engaged = torch.ones((), dtype=torch.bool, device=self.device)
+        if gt_free:
+            vi_aligned, vi_engaged = state.vi_aligned, state.vi_engaged
+            if be.vi_factors:
+                vi_engaged = vi_engaged | (state.kf_count + is_kf.to(torch.int32)
+                                           > be.vi_two_phase_max_kfs)
         new_state = EngineState(
             q_wb=q_wb,
             v_w=v_new,
@@ -489,8 +521,7 @@ class VIOEngine:
             marg_pend_R_cw=state.marg_pend_R_cw,
             marg_pend_t_cw=state.marg_pend_t_cw,
             marg_pend_v=state.marg_pend_v,
-            # GT-scale steps are metric by construction: both latches set.
-            vi_aligned=true_,
+            vi_aligned=vi_aligned,
             kf_depths=on_kf(depth_p, state.kf_depths),
             kf_depth_valid=on_kf(valid_p, state.kf_depth_valid),
             shadow_win_p=on_kf(shadow_win_p, state.shadow_win_p),
@@ -501,13 +532,34 @@ class VIOEngine:
             origin_p_wc=state.origin_p_wc,
             shadow_origin_p=state.shadow_origin_p,
             bootstrap_applies=state.bootstrap_applies,
-            vi_engaged=true_,
+            # Under VI-BA the promotion-count deadline also engages.
+            vi_engaged=vi_engaged,
         )
+        if en.vi_align_bootstrap and gt_free:
+            # GT-free supervision on promotion (the reference's cond): the
+            # alignment runs on every frame and is kept where it applies.
+            # Under VI-BA it stops once the BA is engaged.
+            need_align = is_kf & (torch.sum(new_state.window.imu_valid)
+                                  >= en.vi_align_min_factors)
+            if be.vi_factors:
+                need_align = need_align & ~new_state.vi_engaged
+            aligned = vi_align_window(new_state, R_bc, en.gravity,
+                                      min_factors=en.vi_align_min_factors,
+                                      min_excitation=en.vi_align_min_excitation,
+                                      engage_min_excitation=en.vi_engage_min_excitation)
+            new_state = tree_where(need_align, aligned, new_state)
+        if be.refine_in_step:
+            # The in-step window (VI-)BA on promotion (every refine_stride-th).
+            refine_now = is_kf
+            if be.refine_stride > 1:
+                refine_now = is_kf & (new_state.kf_count % be.refine_stride == 0)
+            refined = refine_window(new_state, cfg, fx, fy, cx, cy, R_bc=R_bc)
+            new_state = tree_where(refine_now, refined, new_state)
         result = FrameResult(
-            p_wc=p_wc_j,
-            R_wc=R_wc_j,
+            p_wc=new_state.p_wc if be.refine_in_step else p_wc_j,
+            R_wc=new_state.R_wc if be.refine_in_step else R_wc_j,
             q_wb=q_wb,
-            v_w=v_new,
+            v_w=new_state.v_w if be.refine_in_step else v_new,
             is_keyframe=is_kf,
             num_matches=num_matches,
             num_inliers=est_inliers,

@@ -82,6 +82,14 @@ class EngineState(NamedTuple):
     vi_engaged: torch.Tensor      # () bool
 
 
+def tree_where(cond, a, b):
+    """torch.where(cond, a, b) over two states of the same structure
+    (nested NamedTuples of tensors); a leaf both share is kept as is."""
+    if isinstance(a, tuple):
+        return type(a)(*[tree_where(cond, x, y) for x, y in zip(a, b)])
+    return a if a is b else torch.where(cond, a, b)
+
+
 def _eye_stack(W, device):
     return torch.eye(3, dtype=torch.float32, device=device).repeat(W, 1, 1)
 

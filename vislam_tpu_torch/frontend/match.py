@@ -32,14 +32,19 @@ def match_descriptors(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.8,
     Guided matching: with uv_pred (K,2 predicted position of each A keypoint
     in B), uv_b (N,2) and gate_radius > 0, candidate pairs outside the
     prediction disc are excluded before the ratio test.
+
+    Batched (ungated): desc_b (Bt, N, D), mask_b (Bt, N) match Bt sets
+    against a shared A in one kernel call (`ops/match_kernel.py`); every
+    field of the result gains the leading Bt.
     """
     min1, min2, arg1, colarg = match_top2(desc_a, mask_a, desc_b, mask_b,
                                           uv_pred, uv_b, gate_radius)
-    K = desc_a.shape[0]
+    K = desc_a.shape[-2]
     ok = mask_a & (min1 < BIG * 0.5)
     ok = ok & (min1 < (ratio * ratio) * torch.clamp(min2, min=1e-12))
     if mutual:
-        safe = torch.clamp(arg1, 0, desc_b.shape[0] - 1).long()
-        ok = ok & (colarg[safe] == torch.arange(K, dtype=torch.int32, device=ok.device))
+        safe = torch.clamp(arg1, 0, desc_b.shape[-2] - 1).long()
+        ok = ok & (torch.gather(colarg, -1, safe)
+                   == torch.arange(K, dtype=torch.int32, device=ok.device))
     dist = torch.sqrt(torch.clamp(min1, min=0.0))
     return Matches(idx_b=arg1, dist=dist, mask=ok)

@@ -1,1 +1,2 @@
-"""Madgwick filter and IMU preintegration (port of vislam_tpu.inertial)."""
+"""Madgwick filter, IMU preintegration and the linear VI alignment (port of
+vislam_tpu.inertial)."""

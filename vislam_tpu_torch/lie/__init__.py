@@ -1,4 +1,4 @@
-"""Quaternion + SO(3) math (port of vislam_tpu.lie)."""
+"""Quaternion, SO(3) and SE(3) math (port of vislam_tpu.lie)."""
 
 from vislam_tpu_torch.lie.quat import (
     mat_to_quat,
@@ -12,4 +12,8 @@ from vislam_tpu_torch.lie.so3 import (
     so3_exp,
     so3_hat,
     so3_left_jacobian,
+    so3_left_jacobian_inv,
+    so3_log,
+    so3_vee,
 )
+from vislam_tpu_torch.lie.se3 import se3_exp, se3_log

@@ -22,7 +22,13 @@
 // the distance, the row top-2 and column compares, the disc test) at
 // 67 TFLOP/s, adds 0.06 us (0.11 us): 0.98 us (1.89 us) ungated. The
 // bytes, 4 D (K + N) in (0.8 MB; 1.6 MB), take 0.24 us (0.47 us) at
-// 3.35 TB/s. chip_smoke.py computes these per call.
+// 3.35 TB/s. A batch of W pairs sharing A multiplies the operations by W.
+// The batched call (the window match) reads the bfloat16 window bank's
+// values widened to float32, so its a.b needs one bfloat16 pass, 2 W K N D
+// at 989 TFLOP/s: at W = 10, K = N = 768, D = 128, 1.53 us plus 0.62 us of
+// the rest, 2.14 us; its 4.5 MB take 1.33 us. On such operands two of the
+// three TF32 products this kernel makes multiply zeros (the low halves).
+// chip_smoke.py computes these per call.
 //
 // Design. A 2-D grid of 32 x 64 output tiles (rows of A x rows of B):
 // 24 x 12 = 288 blocks at K = N = 768 and 16 x 8 = 128 at K = N = 512 (the
@@ -66,6 +72,16 @@
 // Launches per call: 2, a small kernel that resets the column keys and the
 // counters, then the match kernel (the first version made 3: a memset, the
 // kernel, and a kernel unpacking the column keys).
+//
+// Batch. One call also matches a batch of pairs (the window-track match of
+// vislam_tpu/engine/refine.py:36-63: the anchor keyframe against each of
+// the W window slots, a vmapped XLA match in the reference): the grid's
+// third dimension runs over the batch. B, its mask and every output advance
+// by one entry's size per batch index; A and its mask are shared by the
+// whole batch (stride 0). Each entry has its own column
+// keys, row partials and counters in the scratch, all reset by the one
+// reset launch, so a batched call is still 2 launches. The gated match is
+// never batched (the window match is ungated).
 //
 // Times it replaces (NVIDIA H100 80GB HBM3, 700 W, back-to-back launches):
 // 186.9 / 185.8 us ungated and 197.1 / 195.9 us gated at K = 768, D = 128;
@@ -158,16 +174,17 @@ __device__ __forceinline__ void cp_async_wait(int n) {
   }
 }
 
-__global__ void reset_kernel(unsigned long long* __restrict__ colkey, int N,
+__global__ void reset_kernel(unsigned long long* __restrict__ colkey, int n_keys,
                              int* __restrict__ counts, int n_counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < N) colkey[i] = ~0ull;
+  if (i < n_keys) colkey[i] = ~0ull;
   if (i < n_counts) counts[i] = 0;
 }
 
-// Grid (column tiles, row tiles). rowpart (column tiles, K) holds each
-// block's row partials as (m1 bits, m2 bits, a1, 0); counts holds one
-// counter per row strip, then one per column strip.
+// Grid (column tiles, row tiles, batch). For each batch entry, rowpart
+// (column tiles, K) holds each block's row partials as (m1 bits, m2 bits,
+// a1, 0); counts holds one counter per row strip, then one per column
+// strip. A and ma are shared by every batch entry.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 match_top2_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
@@ -192,6 +209,18 @@ match_top2_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
   const int g = lane >> 2, t = lane & 3;           // mma fragment coordinates
   const int wm = warp & 1, wn = warp >> 1;
   const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
+  {  // this block's batch entry
+    const size_t e = blockIdx.z;
+    Bm += e * N * D;
+    mb += e * N;
+    min1 += e * K;
+    min2 += e * K;
+    arg1 += e * K;
+    colarg += e * N;
+    colkey += e * N;
+    rowpart += e * gridDim.x * K;
+    counts += e * (gridDim.x + gridDim.y);
+  }
 
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
@@ -364,20 +393,21 @@ match_top2_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
   }
 }
 
-// The scratch layout: colkey (N x 8 B), rowpart (16-aligned, column tiles x
-// K x 16 B), counts (row tiles + column tiles, 4 B each).
+// The scratch layout, each region batch entries one after the other:
+// colkey (N x 8 B each), rowpart (16-aligned, column tiles x K x 16 B
+// each), counts (row tiles + column tiles, 4 B each).
 struct Layout {
   int row_tiles, col_tiles;
   size_t rowpart, counts, bytes;
 };
 
-Layout layout(int K, int N) {
+Layout layout(int K, int N, int batch) {
   Layout l;
   l.row_tiles = (K + BM - 1) / BM;
   l.col_tiles = (N + BN - 1) / BN;
-  l.rowpart = (sizeof(unsigned long long) * N + 15) / 16 * 16;
-  l.counts = l.rowpart + sizeof(int4) * (size_t)l.col_tiles * K;
-  l.bytes = l.counts + sizeof(int) * (size_t)(l.row_tiles + l.col_tiles);
+  l.rowpart = (sizeof(unsigned long long) * N * batch + 15) / 16 * 16;
+  l.counts = l.rowpart + sizeof(int4) * (size_t)l.col_tiles * K * batch;
+  l.bytes = l.counts + sizeof(int) * (size_t)(l.row_tiles + l.col_tiles) * batch;
   return l;
 }
 
@@ -385,19 +415,19 @@ template <int D>
 cudaError_t launch(const float* a, const float* b, const unsigned char* ma,
                    const unsigned char* mb, const float* uv_pred, const float* uv_b,
                    float r2, int gated, float* min1, float* min2, int* arg1, int* colarg,
-                   char* scratch, const Layout& l, int K, int N, cudaStream_t s) {
+                   char* scratch, const Layout& l, int K, int N, int batch, cudaStream_t s) {
   static std::atomic<unsigned long long> configured{0};
   cudaError_t e = set_smem_once(configured, reinterpret_cast<const void*>(match_top2_kernel<D>),
                                 smem_bytes<D>());
   if (e != cudaSuccess) return e;
   auto* colkey = reinterpret_cast<unsigned long long*>(scratch);
   auto* counts = reinterpret_cast<int*>(scratch + l.counts);
-  const int n_counts = l.row_tiles + l.col_tiles;
-  const int reset_n = N > n_counts ? N : n_counts;
-  reset_kernel<<<(reset_n + 255) / 256, 256, 0, s>>>(colkey, N, counts, n_counts);
+  const int n_keys = N * batch, n_counts = (l.row_tiles + l.col_tiles) * batch;
+  const int reset_n = n_keys > n_counts ? n_keys : n_counts;
+  reset_kernel<<<(reset_n + 255) / 256, 256, 0, s>>>(colkey, n_keys, counts, n_counts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  match_top2_kernel<D><<<dim3(l.col_tiles, l.row_tiles), THREADS, smem_bytes<D>(), s>>>(
+  match_top2_kernel<D><<<dim3(l.col_tiles, l.row_tiles, batch), THREADS, smem_bytes<D>(), s>>>(
       a, b, ma, mb, uv_pred, uv_b, r2, gated, K, N, min1, min2, arg1, colarg, colkey,
       reinterpret_cast<int4*>(scratch + l.rowpart), counts);
   return cudaGetLastError();
@@ -405,31 +435,38 @@ cudaError_t launch(const float* a, const float* b, const unsigned char* ma,
 
 }  // namespace
 
-// Bytes of scratch match_top2 needs for K rows and N columns.
-extern "C" size_t match_top2_scratch_bytes(int K, int N) { return layout(K, N).bytes; }
+// Bytes of scratch match_top2 needs for K rows, N columns and `batch`
+// pairs.
+extern "C" size_t match_top2_scratch_bytes(int K, int N, int batch) {
+  return layout(K, N, batch).bytes;
+}
 
-// a (K, D), b (N, D) float32 with D = 128 or 256, 16-byte aligned; ma (K,),
-// mb (N,) bool as bytes; uv_pred (K, 2), uv_b (N, 2) float32, read only when
-// gated != 0; r2 the squared gate radius. Outputs min1, min2 (K,) float32,
-// arg1 (K,) int32, colarg (N,) int32; scratch: match_top2_scratch_bytes(K,
-// N) bytes, 16-byte aligned. All contiguous device buffers. Two launches on
-// `stream`; returns the first CUDA error (0 on success); never synchronises.
+// `batch` pairs (a, b): b (batch, N, D) float32 with D = 128 or 256, a
+// (K, D) shared by every pair, both 16-byte aligned; ma (K,), mb (batch, N)
+// bool as bytes; uv_pred (K, 2), uv_b (N, 2) float32, read only when
+// gated != 0 (then batch must be 1); r2 the squared gate radius. Outputs min1, min2 (batch, K) float32,
+// arg1 (batch, K) int32, colarg (batch, N) int32; scratch:
+// match_top2_scratch_bytes(K, N, batch) bytes, 16-byte aligned. All
+// contiguous device buffers. Two launches on `stream`; returns the first
+// CUDA error (0 on success); never synchronises.
 extern "C" int match_top2(const float* a, const float* b,
                           const unsigned char* ma, const unsigned char* mb,
                           const float* uv_pred, const float* uv_b, float r2,
                           int gated, float* min1, float* min2, int* arg1,
                           int* colarg, void* scratch, size_t scratch_bytes, int K, int N,
-                          int D, void* stream) {
+                          int D, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((D != 128 && D != 256) || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Layout l = layout(K, N);
+  if ((D != 128 && D != 256) || K < 1 || N < 1 || batch < 1 || batch > 65535 ||
+      (gated && batch != 1) || (size_t)N * batch > INT_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout l = layout(K, N, batch);
   if (scratch_bytes < l.bytes || l.row_tiles > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   char* sc = static_cast<char*>(scratch);
   const cudaError_t e =
       D == 128 ? launch<128>(a, b, ma, mb, uv_pred, uv_b, r2, gated, min1, min2, arg1, colarg,
-                             sc, l, K, N, s)
+                             sc, l, K, N, batch, s)
                : launch<256>(a, b, ma, mb, uv_pred, uv_b, r2, gated, min1, min2, arg1, colarg,
-                             sc, l, K, N, s);
+                             sc, l, K, N, batch, s);
   return static_cast<int>(e);
 }

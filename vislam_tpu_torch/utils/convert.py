@@ -1,10 +1,12 @@
-"""Convert engine state and sequence inputs between numpy trees and the
-port's tensors.
+"""Convert engine state, sequence inputs and bundle-adjustment problems
+between numpy trees and the port's tensors.
 
 `state_from_numpy` takes the reference's EngineState after
 `jax.tree.map(np.asarray, state)` (any NamedTuple with the same field
 names) and returns the port's EngineState on `device`; `state_to_numpy`
-goes back. Dtypes are kept: the window descriptor bank stays bfloat16,
+goes back. `ba_from_numpy` does the same for the BA trees (BAState,
+BAProblem, ImuFactors): array fields become tensors, the camera
+intrinsics of a BAProblem stay floats, absent optional fields stay None. Dtypes are kept: the window descriptor bank stays bfloat16,
 masks stay bool, counters stay int32. This module imports neither jax nor
 the reference package; numpy's bfloat16 is the `ml_dtypes` one, imported
 only when a bfloat16 array has to be made.
@@ -15,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vislam_tpu_torch.backend.ba import BAProblem, BAState
+from vislam_tpu_torch.backend.vi_ba import ImuFactors
 from vislam_tpu_torch.engine.batch import SequenceInputs
 from vislam_tpu_torch.engine.state import EngineState, KeyframeWindow
 from vislam_tpu_torch.frontend.features import Features
@@ -49,7 +53,8 @@ def _from(cls, tree, device):
 
 
 def _to(tree):
-    return type(tree)(*[_to(v) if isinstance(v, tuple) else _array(v) for v in tree])
+    return type(tree)(*[_to(v) if isinstance(v, tuple) else
+                        _array(v) if isinstance(v, torch.Tensor) else v for v in tree])
 
 
 def state_from_numpy(tree, device) -> EngineState:
@@ -75,3 +80,24 @@ def inputs_to_numpy(inputs: SequenceInputs) -> SequenceInputs:
     return SequenceInputs(images=_array(inputs.images), imu=_array(inputs.imu),
                           imu_dt=_array(inputs.imu_dt), gt_pos=_array(inputs.gt_pos),
                           use_gt_scale=np.asarray(inputs.use_gt_scale))
+
+
+_BA = {"BAState": BAState, "BAProblem": BAProblem, "ImuFactors": ImuFactors}
+_INTRINSICS = ("fx", "fy", "cx", "cy")
+
+
+def ba_from_numpy(tree, device):
+    """A reference BAState, BAProblem or ImuFactors (numpy leaves; chosen by
+    the tree's type name) -> the port's, on `device`."""
+    cls = _BA[type(tree).__name__]
+    vals = {}
+    for name in cls._fields:
+        v = getattr(tree, name, None)
+        vals[name] = None if v is None else float(v) if name in _INTRINSICS \
+            else _tensor(v, device)
+    return cls(**vals)
+
+
+def ba_to_numpy(tree):
+    """The port's BAState, BAProblem or ImuFactors -> numpy leaves."""
+    return _to(tree)
