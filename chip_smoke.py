@@ -17,6 +17,15 @@ Phases, each fatal on failure (exit code != 0, no result line):
      all-invalid rows and columns and gates with empty discs; the batched
      window-track match (the anchor, shared, against W window slots in one
      call) at W = 10, ragged W, K and N, all-invalid slots and W = 1;
+     the radius-1 and -3 NMS on the kernel's raw response; each kernel as the
+     batched step calls it, under torch.func.vmap (the custom op's rule
+     folds the map into one call): response and FED over B = 8 frames
+     (FED with a distinct k each) against the per-frame kernel calls and
+     the twin, the match at B = 8 with an A per pair (a_group 1) ungated
+     and gated, the window match of 8 sequences (a_group W = 10) and
+     ragged pairs (B = 3, K = 700, N = 333, an all-invalid entry, empty
+     discs), every entry against the twin; then the match's custom-op
+     dispatch cost;
   3. paths: run_sequence_scan over a 480x752 synthetic sequence, K = 768,
      from the true initial state, for each frontend the port runs (GT
      scale) and for the GT-free modes:
@@ -41,7 +50,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
      sequence in the reference either, so it has no accuracy bound. Then
      one refine_window call on the slam path's final (engaged) state, on
      the card and on the CPU: refined poses within 1e-3 m, the window
-     VI-BA's iterations equal;
+     VI-BA's iterations equal.
+     Then three batched paths (run_batch_scan: each frame one
+     torch.func.vmap call of the step over B sequences, seeds 0 to B - 1):
+       batch8      SystemConfig(), GT scale, 8 sequences x 60 frames
+       batch32     SystemConfig(), GT scale, 32 sequences x 24 frames
+       batch_slam  the slam path's configuration, GT-free, 4 x 30 frames
+                   (cut from 60 to keep the run near half its time limit)
+     each printing aggregate frames/s (B x N frames over wall, 3 runs),
+     exact launch counts per batched step, 0 host syncs per batched step,
+     peak memory, each entry's ATE, and each entry's first 10 frames
+     against its unbatched card run on the same draws (keyframes equal,
+     positions within 1e-3 m); batch8 holds every entry's ATE < 0.5 m;
   4. stage times: for each 60-frame path, where a frame's wall time goes
      (each stage alone, synchronised; the GT-free paths add
      vi_align_window, slam refine_window);
@@ -56,10 +76,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      float32 on the CUDA cores, the match's a.b as 3xTF32 on the tensor
      cores, the window match's, whose operands are bfloat16 values, as
      one bfloat16 pass) and the share of the graph time the bound is;
-  7. traces: for each 60-frame path, torch.profiler over 5 frames (slam:
-     2): the device busy share, launches per frame and the kernels by
-     device time.
-Each phase prints its own wall time ("phase ...: s").
+  7. traces: for each 60-frame path, torch.profiler over 3 frames (slam:
+     1), and for each batched path over its first steps (2; batch_slam
+     1) and one step's RANSAC draws alone: the device busy share,
+     launches per frame (per batched step) and the kernels by device
+     time.
+Each phase prints its own wall time ("phase ...: s"). vmap's per-example
+fallback is disabled, so an operator without a batching rule fails the
+run instead of looping over a batch.
 
 Wall-clock timings come before graph capture and before any profiler
 run in the process: a profiler run was seen to leave the host slower at
@@ -70,7 +94,8 @@ The last two lines are the kernel table {"kernels": [...]} and
 {"ok": true, "device": {...}}. In the table, ms, plain_ms, graph_ms and
 bound_ms of a row are sums over the calls one frame makes (the two levels of
 a response family; FED's 4- and 8-step cycles; the ungated and gated match
-at K = 768; the window match's one batched call), launches_per_call lists
+at K = 768; the window match's one batched call; the batched rows the
+calls of one batched step at B = 8), launches_per_call lists
 those calls' device launches, and
 library_ms is null: no single PyTorch call computes any of the three
 functions. Imports nothing of JAX.
@@ -170,9 +195,45 @@ PATHS = {
 }
 SLAM_PATH = "slam"
 # Frames each 60-frame path's profiler trace covers: the trace's processing
-# grows with the launches (the slam path makes ~23k a frame), and it was
-# most of the run's time at 10 frames (3 on the slam path).
-TRACE_FRAMES = {"default": 5, "kaze": 5, "akaze": 5, "imu_scale": 5, SLAM_PATH: 2}
+# grows with the launches (the slam path makes ~23k a frame); it was most
+# of the run's time at 10 frames (3 on the slam path), and at 5 (2) it kept
+# the whole run, batched paths added, over half of its time limit.
+TRACE_FRAMES = {"default": 3, "kaze": 3, "akaze": 3, "imu_scale": 3, SLAM_PATH: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPath:
+    """A batched path: B sequences (seeds 0 to B - 1) stepped together by
+    run_batch_scan from their true initial states, its frames, GT or IMU
+    scale, backend overrides, whether each entry's ATE is bounded, the
+    launches per batched step each counter must show (every other counter
+    0), the steps its trace covers and a note printed with it (a cut)."""
+
+    sequences: int
+    frames: int
+    per_step: dict
+    backend: dict = dataclasses.field(default_factory=dict)
+    gt_scale: bool = True
+    accuracy: bool = False
+    trace_steps: int = 2
+    note: str = ""
+
+
+# Per batched step: one response launch per level and the two matches
+# (main, gated rescue; A per pair) for the whole batch; SLAM mode adds the
+# window match (an A per sequence shared by its W slots).
+_BATCH_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2}
+BATCH_PATHS = {
+    "batch8": BatchPath(8, N_FRAMES, _BATCH_STEP, accuracy=True),
+    "batch32": BatchPath(32, 24, _BATCH_STEP),
+    "batch_slam": BatchPath(4, 30, {**_BATCH_STEP, "match_top2": 3, "match_top2_batched": 1},
+                            backend=dict(vi_factors=True, refine_in_step=True), gt_scale=False,
+                            trace_steps=1,
+                            note="cut in depth from 60 frames to 30: at 60 its three timed runs "
+                                 "took the whole script past half of its 1200 s limit; "
+                                 "vi_engaged (the promotion deadline, ~frame 35) is printed, "
+                                 "not required"),
+}
 
 
 def _fail(msg: str) -> None:
@@ -385,17 +446,21 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    return {name: (getattr(obj, attr) if key is None else getattr(obj, attr)[key])
-            for name, (obj, attr, key) in _counters().items()}
+    """Every counter, and match_top2_per_pair: the match calls with an A per
+    pair (a_group = 1; the single pair's or the batched step's)."""
+    out = {name: (getattr(obj, attr) if key is None else getattr(obj, attr)[key])
+           for name, (obj, attr, key) in _counters().items()}
+    out["match_top2_per_pair"] = out["match_top2"] - out["match_top2_batched"]
+    return out
 
 
-def _config(path: Path):
+def _config(frontend: dict, backend: dict):
     from vislam_tpu_torch.utils.config import SystemConfig
 
     base = SystemConfig()
     return dataclasses.replace(
-        base, frontend=dataclasses.replace(base.frontend, **path.frontend),
-        backend=dataclasses.replace(base.backend, **path.backend))
+        base, frontend=dataclasses.replace(base.frontend, **frontend),
+        backend=dataclasses.replace(base.backend, **backend))
 
 
 def _to_device(tree, dev):
@@ -405,12 +470,12 @@ def _to_device(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
-def _response_check(fam, label, x, k_nms, k_resp) -> float:
+def _response_check(fam, label, x, k_nms, k_resp, radius: int = 2) -> float:
     """The kernel's (nms, resp) of images x (B, H, W) against the plain
-    twin's; returns the largest response error."""
+    twin's (NMS radius `radius`); returns the largest response error."""
     from vislam_tpu_torch.ops.harris_kernel import response_nms_plain
 
-    p_nms, p_resp = response_nms_plain(x, fam)
+    p_nms, p_resp = response_nms_plain(x, fam, radius)
     torch.cuda.synchronize()
     err = (k_resp - p_resp).abs().max().item()
     scale = max(p_resp.abs().max().item(), 1.0)
@@ -477,6 +542,14 @@ def _response_rows(seq):
             err_max = max(err_max, err)
         for label, x in ragged:
             err_max = max(err_max, _response_check(fam, label, x, *response_nms(x, fam)))
+        if fam == "shi_tomasi":
+            # frontend.nms_radius 1 and 3: the kernel's raw response through
+            # the (2r+1)^2 NMS, as the reference routes any radius but 2.
+            for lv in levels:
+                for radius in (1, 3):
+                    err_max = max(err_max, _response_check(
+                        fam, f"{tuple(lv.shape)} nms_radius {radius}", lv[None],
+                        *response_nms(lv[None], fam, radius), radius=radius))
         rows.append(_row(f"response_nms:{fam}", fam, "vislam_tpu_torch/ops/csrc/response_nms.cu",
                          "vislam_tpu/ops/harris_kernel.py:193", err_max, measures))
     return rows
@@ -694,15 +767,239 @@ def _window_match_row(seq, W):
                 "vislam_tpu/ops/match_kernel.py:126", err_max, measures)
 
 
+BATCH = 8   # sequences of the batched kernel checks, as the batch8 path steps them
+
+
+def _per_entry_check(label, D, k, p_of, mask_b) -> float:
+    """A batched call's outputs k (leading dims (B,) or (B, W)) against the
+    plain twin's single-pair outputs p_of(index) of every entry."""
+    err = 0.0
+    for idx in np.ndindex(*mask_b.shape[:-1]):
+        err = max(err, _match_check(f"{label} entry {idx}", D, [x[idx] for x in k], p_of(idx),
+                                    mask_b[idx]))
+    return err
+
+
+def _match_bytes(D, K, N, pairs, a_sets, gated) -> int:
+    """Bytes the match function moves: each A set and each B set with its
+    mask (and positions, gated) read once, min1, min2, arg1 (K) and colarg
+    (N) written per pair."""
+    per_row = 4 * D + 1 + (8 if gated else 0)
+    return per_row * (a_sets * K + pairs * N) + pairs * (12 * K + 4 * N)
+
+
+def _batch_match_rows(feats, gate_px, W):
+    """match_top2 as the batched step calls it, each under torch.func.vmap
+    (the op's rule folds the map into one call of the kernel): B = 8 pairs
+    with an A each (a_group = 1), ungated and gated at the rescue's disc
+    (the per-frame match and the rescue); the window match of 8 sequences
+    (a_group = W: each sequence's anchor against its W slots, the bf16 bank
+    widened as engine/refine.py widens it). Each entry held against the
+    plain twin on its single pair, timed. Then ragged pairs (B = 3,
+    K = 700, N = 333) with an all-invalid entry, ungated and gated with
+    empty discs. The custom op's own cost: the op against its function
+    called directly, back-to-back."""
+    from vislam_tpu_torch.ops.match_kernel import _match_op, match_top2, match_top2_plain
+
+    B = BATCH
+
+    def stack(idx, field):
+        return torch.stack([getattr(feats[i], field) for i in idx]).contiguous()
+
+    ia, ib = [2 * b for b in range(B)], [2 * b + 1 for b in range(B)]
+    a, ma, uva = stack(ia, "desc"), stack(ia, "mask"), stack(ia, "uv")
+    b_, mb, uvb = stack(ib, "desc"), stack(ib, "mask"), stack(ib, "uv")
+    K, D = a.shape[1:]
+    N = b_.shape[1]
+
+    def vmapped(r):
+        if r > 0:
+            return lambda *x: torch.func.vmap(lambda *y: match_top2(*y, gate_radius=r))(*x)
+        return lambda *x: torch.func.vmap(match_top2)(*x)
+
+    measures, err = [], 0.0
+    for gated in (False, True):
+        r = gate_px if gated else 0.0
+        args = (a, ma, b_, mb) + ((uva, uvb) if gated else ())
+        label = f"batch{B} pairs K={K} N={N} D={D} gated={gated}"
+        k = vmapped(r)(*args)
+        torch.cuda.synchronize()
+        err = max(err, _per_entry_check(label, D, k, lambda z: match_top2_plain(
+            *[x[z] for x in args], gate_radius=r), mb))
+        per_pair = MATCH_FLOP_PER_PAIR + (GATE_FLOP_PER_PAIR if gated else 0)
+        measures.append(_measure(
+            f"match_top2 {label} (vmap, a_group 1)",
+            lambda args=args, r=r: match_top2_plain(*args, gate_radius=r),
+            lambda args=args, r=r: vmapped(r)(*args), _match_bytes(D, K, N, B, B, gated),
+            [(3 * 2 * B * K * N * D, "tf32", f"3xTF32 a.b 3 x 2 x {B} x {K} x {N} x {D}"),
+             (per_pair * B * K * N, "fp32", f"{per_pair} x {B} x {K} x {N} per pair")], 2))
+    # Ragged pairs; entry 1 wholly invalid; gated, every 3rd disc empty.
+    far = (uva[:3, :700] + 1000.0 * (torch.arange(700, device=DEV) % 3 == 0)[:, None]).contiguous()
+    mb_r = mb[:3, :333].clone()
+    mb_r[1] = False
+    ragged = (a[:3, :700].contiguous(), ma[:3, :700].contiguous(), b_[:3, :333].contiguous(),
+              mb_r)
+    for gated in (False, True):
+        r = gate_px if gated else 0.0
+        args = ragged + ((far, uvb[:3, :333].contiguous()) if gated else ())
+        k = vmapped(r)(*args)
+        torch.cuda.synchronize()
+        err = max(err, _per_entry_check(
+            f"ragged B=3 K=700 N=333 D={D}, entry 1 all invalid"
+            + (", every 3rd disc empty" if gated else ""), D, k,
+            lambda z, args=args, r=r: match_top2_plain(*[x[z] for x in args], gate_radius=r),
+            mb_r))
+    # The op's dispatch cost per call (host time; the same single pair).
+    one = (a[0], ma[0], b_[0], mb[0])
+    direct = (a[:1], ma[:1], b_[:1], mb[:1], None, None, 0.0, 1)
+    op_ms = _time_ms(lambda: match_top2(*one))
+    fn_ms = _time_ms(lambda: _match_op._init_fn(*direct))
+    print(f"kernel match_top2 custom op: {op_ms * 1e3:.2f} us per call back-to-back through "
+          f"the op, {fn_ms * 1e3:.2f} us calling its function directly: "
+          f"{(op_ms - fn_ms) * 1e3:.2f} us of dispatch", flush=True)
+    pairs = _row("match_top2:batch8_pairs", "match_top2_per_pair",
+                 "vislam_tpu_torch/ops/csrc/match_top2.cu", "vislam_tpu/ops/match_kernel.py:120",
+                 err, measures)
+
+    # The window match of B sequences: bank[b, w] a frame's descriptors.
+    n = len(feats)
+    bank16 = torch.stack([torch.stack([feats[(b + 2 * w) % n].desc for w in range(W)])
+                          for b in range(B)]).to(torch.bfloat16)
+    bank = bank16.float()
+    masks = torch.stack([torch.stack([feats[(b + 2 * w) % n].mask for w in range(W)])
+                         for b in range(B)])
+    anchor, anchor_mask = bank[:, W - 1].contiguous(), masks[:, W - 1].contiguous()
+    args = (anchor, anchor_mask, bank, masks)
+    label = f"batch{B} window W={W} K={K} N={K} D={D}"
+    k = vmapped(0.0)(*args)
+    torch.cuda.synchronize()
+    err_w = _per_entry_check(label, D, k, lambda bw: match_top2_plain(
+        anchor[bw[0]], anchor_mask[bw[0]], bank[bw], masks[bw]), masks)
+    window = _measure(
+        f"match_top2 {label} (vmap, a_group {W})",
+        lambda flat=(anchor, anchor_mask, bank.flatten(0, 1), masks.flatten(0, 1)):
+            match_top2_plain(*flat),
+        lambda: vmapped(0.0)(*args), _match_bytes(D, K, K, B * W, B, False),
+        [(2 * B * W * K * K * D, "bf16", f"bfloat16 a.b 2 x {B} x {W} x {K} x {K} x {D}"),
+         (MATCH_FLOP_PER_PAIR * B * W * K * K, "fp32",
+          f"{MATCH_FLOP_PER_PAIR} x {B} x {W} x {K} x {K} per pair")], 2)
+    for m, single in zip(measures + [window], (0.977, 1.030, 2.143)):
+        bound = max(m["bytes_ms"], m["ops_ms"]) * 1e3
+        print(f"kernel {m['label']}: bound {bound:.3f} us = {bound / single:.2f} x the single "
+              f"call's {single} us", flush=True)
+    return [pairs, _row("match_top2:batch8_window", "match_top2_batched",
+                        "vislam_tpu_torch/ops/csrc/match_top2.cu",
+                        "vislam_tpu/ops/match_kernel.py:126", err_w, [window])]
+
+
+def _batch_response_row(seq):
+    """response_nms under torch.func.vmap over B = 8 frames' levels (one
+    folded launch per level), every family against the per-frame kernel
+    calls stacked and against the plain twin, with the tests' tolerances;
+    shi_tomasi timed at both levels."""
+    from vislam_tpu_torch.frontend.pyramid import build_pyramid
+    from vislam_tpu_torch.ops.harris_kernel import FAMILIES, response_nms, response_nms_plain
+
+    pyrs = [build_pyramid(torch.as_tensor(seq["images"][i]).to(DEV, torch.bfloat16), 2)
+            for i in range(BATCH)]
+    levels = [torch.stack([p[lv].float() for p in pyrs]).contiguous() for lv in range(2)]
+    err_max, measures = 0.0, []
+    for fam in FAMILIES:
+        for x in levels:
+            label = f"vmap B={BATCH} {tuple(x.shape[1:])}"
+            got = torch.func.vmap(lambda im: tuple(
+                o for o in response_nms(im, fam) if o is not None))(x)
+            each = [[o for o in response_nms(im, fam) if o is not None] for im in x]
+            stacked = [torch.stack(o) for o in zip(*each)]
+            torch.cuda.synchronize()
+            k_nms = got[0] if fam != "_gradmag2" else None
+            err = _response_check(fam, label + " vs plain", x, k_nms, got[-1])
+            # The folded launch may pick another tile height than a single
+            # frame's (the kernel chooses it from (B, H, W)): held to the
+            # twin's tolerance, not to the bit.
+            diff = (got[-1] - stacked[-1]).abs().max().item()
+            scale = max(stacked[-1].abs().max().item(), 1.0)
+            agree = 1.0 if k_nms is None else \
+                (torch.isneginf(got[0]) == torch.isneginf(stacked[0])).float().mean().item()
+            print(f"kernel response_nms {fam} {label}: against the per-frame kernel calls "
+                  f"max |d resp| {diff:.3e} (scale {scale:.3e}), nms agreement {agree:.6f}",
+                  flush=True)
+            if not diff / scale < 1e-4 or not agree > 0.999:
+                _fail(f"response_nms {fam} {label}: the folded call differs from the "
+                      "per-frame calls")
+            if fam == "shi_tomasi":
+                err_max = max(err_max, err)
+                px = x.numel()
+                measures.append(_measure(
+                    f"response_nms {fam} {label}",
+                    lambda x=x, fam=fam: response_nms_plain(x, fam),
+                    lambda x=x, fam=fam: torch.func.vmap(lambda im: response_nms(im, fam))(x),
+                    4 * px * 3, [(RESPONSE_FLOP_PER_PX[fam] * px, "fp32",
+                                  f"{RESPONSE_FLOP_PER_PX[fam]} flop/px x {px} px")], 1))
+    return _row("response_nms:shi_tomasi:batch8", "shi_tomasi",
+                "vislam_tpu_torch/ops/csrc/response_nms.cu",
+                "vislam_tpu/ops/harris_kernel.py:193", err_max, measures)
+
+
+def _batch_fed_measures(seq):
+    """fed_evolve under torch.func.vmap over B = 8 presmoothed frames with a
+    distinct k each, the 4- and 8-step cycles (one folded call each):
+    against the per-frame kernel calls stacked and the plain twin; timed
+    (printed beside the fed_evolve row: no path runs the nonlinear
+    frontend batched)."""
+    from vislam_tpu_torch.frontend.nonlinear import contrast_factor, fed_tau_steps
+    from vislam_tpu_torch.frontend.pyramid import gaussian_blur
+    from vislam_tpu_torch.ops.fed_kernel import fed_evolve, fed_evolve_plain, fed_schedule
+
+    imgs = [torch.as_tensor(seq["images"][i]).to(DEV, torch.bfloat16) for i in range(BATCH)]
+    L = torch.stack([gaussian_blur(im, 1.0).float() for im in imgs]).contiguous()
+    k = torch.stack([contrast_factor(im) * (0.6 + 0.1 * i) for i, im in enumerate(imgs)])
+    err_max, measures = 0.0, []
+    for T in (0.78, 3.84):
+        taus = fed_tau_steps(T)
+        n, px = len(taus), L.numel()
+        label = f"vmap B={BATCH} n={n} {tuple(L.shape[1:])}, distinct k"
+        got = torch.func.vmap(lambda f, kk: fed_evolve(f, kk, taus))(L, k)
+        each = torch.stack([fed_evolve(f, kk, taus) for f, kk in zip(L, k)])
+        ref = fed_evolve_plain(L, k, taus)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        diff = (got - each).abs().max().item()
+        print(f"kernel fed_evolve {label}: max_abs_err {err:.3e} against the plain twin, "
+              f"{diff:.3e} against the per-frame kernel calls", flush=True)
+        if not err < 1e-3 or not diff < 1e-3:
+            _fail(f"fed_evolve {label} disagrees: {err} (plain), {diff} (per frame)")
+        err_max = max(err_max, err)
+        measures.append(_measure(
+            f"fed_evolve {label}", lambda taus=taus: fed_evolve_plain(L, k, taus),
+            lambda taus=taus: torch.func.vmap(lambda f, kk: fed_evolve(f, kk, taus))(L, k),
+            8 * px + 4 * BATCH, [(n * FED_FLOP_PER_PX_STEP * px, "fp32",
+                                  f"{n} steps x {FED_FLOP_PER_PX_STEP} flop/px x {px} px")],
+            len(fed_schedule(n))))
+    return err_max, measures
+
+
 def kernel_phase(seq, cfg_default):
     """Each kernel against its plain twin at main-path shapes and data."""
     # argmin keeps the first index on ties on the card, as on the CPU.
     d = torch.tensor([3.0, 1.0, 2.0, 1.0, 1.0], device=DEV)
     if int(torch.argmin(d)) != 1 or int(torch.argmin(d.reshape(5, 1), dim=0)[0]) != 1:
         _fail("torch.argmin does not keep the first index on ties on the card")
-    return (_response_rows(seq) + [_fed_row(seq)]
+    from vislam_tpu_torch.frontend.features import extract_features
+    from vislam_tpu_torch.utils.config import FrontendConfig
+
+    fed = _fed_row(seq)
+    fed_err, fed_vmap = _batch_fed_measures(seq)
+    fed["extra"] += fed_vmap
+    fed["max_abs_err"] = max(fed["max_abs_err"], fed_err)
+    feats = [extract_features(torch.as_tensor(seq["images"][i]).to(DEV, torch.float32),
+                              FrontendConfig()) for i in range(2 * BATCH + 2)]
+    return (_response_rows(seq) + [fed]
             + _match_rows(seq, cfg_default.frontend.guided_fallback_px)
-            + [_window_match_row(seq, cfg_default.backend.window_size)])
+            + [_window_match_row(seq, cfg_default.backend.window_size)]
+            + [_batch_response_row(seq)]
+            + _batch_match_rows(feats, cfg_default.frontend.guided_fallback_px,
+                                cfg_default.backend.window_size))
 
 
 def stage_times(name, eng, state, inputs):
@@ -779,21 +1076,17 @@ def stage_times(name, eng, state, inputs):
         print(f"profile {name}: {stage}: {wall_ms(fn):.2f} ms wall", flush=True)
 
 
-def trace_path(name, eng, state, inputs):
-    """A torch.profiler pass over TRACE_FRAMES frames: the device busy share
-    and the kernels by device time."""
+def _trace(name, n, run, unit) -> None:
+    """A torch.profiler pass over run() (n frames, or n batched steps): the
+    device busy share, the launches per `unit` and the kernels by device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vislam_tpu_torch.engine import run_sequence_scan
-
-    n = TRACE_FRAMES[name]
-    sub = inputs._replace(images=inputs.images[:n], imu=inputs.imu[:n],
-                          imu_dt=inputs.imu_dt[:n], gt_pos=inputs.gt_pos[:n])
-    run_sequence_scan(eng, state, sub)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_sequence_scan(eng, state, sub)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -802,15 +1095,25 @@ def trace_path(name, eng, state, inputs):
     dev_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                  for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
     n_launch = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
-    print(f"profile {name}: profiled {n} frames: wall {wall * 1e3:.1f} ms, device busy "
+    print(f"profile {name}: profiled {n} {unit}s: wall {wall * 1e3:.1f} ms, device busy "
           f"{dev_us / 1e3:.1f} ms ({dev_us / 1e6 / wall:.3f} of wall), "
-          f"{n_launch} kernel launches ({n_launch / n:.0f} per frame)", flush=True)
+          f"{n_launch} kernel launches ({n_launch / n:.0f} per {unit})", flush=True)
     print(events.table(sort_by="self_cuda_time_total", row_limit=15), flush=True)
 
 
-def _host_syncs(eng, state, inputs, gt_t_norm) -> list:
-    """Synchronizing calls inside one step under CUDA sync debug mode, each
-    located by the port's innermost frame on the Python stack."""
+def trace_path(name, eng, state, inputs):
+    """The trace of TRACE_FRAMES frames of a path."""
+    from vislam_tpu_torch.engine import run_sequence_scan
+
+    n = TRACE_FRAMES[name]
+    sub = inputs._replace(images=inputs.images[:n], imu=inputs.imu[:n],
+                          imu_dt=inputs.imu_dt[:n], gt_pos=inputs.gt_pos[:n])
+    _trace(name, n, lambda: run_sequence_scan(eng, state, sub), "frame")
+
+
+def _host_syncs(step) -> list:
+    """Synchronizing calls inside step() (one step) under CUDA sync debug
+    mode, each located by the port's innermost frame on the Python stack."""
     import traceback
     import warnings
 
@@ -826,7 +1129,7 @@ def _host_syncs(eng, state, inputs, gt_t_norm) -> list:
         warnings.simplefilter("always")
         warnings.showwarning = locate
         torch.cuda.set_sync_debug_mode("warn")
-        eng.step(state, inputs.images[0], inputs.imu[0], inputs.imu_dt[0], gt_t_norm)
+        step()
         torch.cuda.set_sync_debug_mode("default")
     return syncs
 
@@ -842,7 +1145,7 @@ def path_phase(name, seq):
 
     path = PATHS[name]
     N = path.frames
-    cfg = _config(path)
+    cfg = _config(path.frontend, path.backend)
     eng = VIOEngine(seq["calib"], cfg, device=DEV)
 
     def init(e):
@@ -911,7 +1214,8 @@ def path_phase(name, seq):
             _fail(f"{name}: {counter} launched {launches[counter]} times over {N} frames "
                   f"(expected {n} per frame)")
 
-    syncs = _host_syncs(eng, state, inputs, 0.1 if path.gt_scale else -1.0)
+    syncs = _host_syncs(lambda: eng.step(state, inputs.images[0], inputs.imu[0],
+                                         inputs.imu_dt[0], 0.1 if path.gt_scale else -1.0))
     print(f"path {name}: host syncs inside one step: {len(syncs)} {sorted(set(syncs))}",
           flush=True)
     if syncs:
@@ -946,6 +1250,126 @@ def path_phase(name, seq):
     if not torch.equal(kf_g, kf_c) or dp > 1e-2 or dm > 5:
         _fail(f"{name}: the card's run disagrees with the CPU plain twins")
     return launches, ((eng, state, inputs) if N == N_FRAMES else None)
+
+
+def _first(inputs, n):
+    """The first n frames of batched (B, N, ...) inputs."""
+    return inputs._replace(images=inputs.images[:, :n], imu=inputs.imu[:, :n],
+                           imu_dt=inputs.imu_dt[:, :n], gt_pos=inputs.gt_pos[:, :n])
+
+
+def batch_path_phase(name, seqs):
+    """Drive one batched path (run_batch_scan: each frame one
+    torch.func.vmap call of the step over the batch); returns its launch
+    counts and what phase 7 traces (engine, state, inputs, kf_gt_pos0)."""
+    from vislam_tpu_torch.engine import (
+        VIOEngine,
+        make_batch_inputs,
+        make_sequence_inputs,
+        run_batch_scan,
+        run_sequence_scan,
+        sequence_seed,
+        stack_states,
+    )
+    from vislam_tpu_torch.eval import ate_rmse
+
+    bp = BATCH_PATHS[name]
+    B, N = bp.sequences, bp.frames
+    seqs = seqs[:B]
+    cfg = _config({}, bp.backend)
+    eng = VIOEngine(seqs[0]["calib"], cfg, device=DEV)
+
+    def init(s):
+        return eng.initialize(s["images"][0], q_wb0=s["gt_quat"][0], v_w0=s["gt_vel"][0],
+                              p_w0=s["gt_pos"][0])
+
+    per_seq = [make_sequence_inputs(s, 1, 1 + N, use_gt_scale=bp.gt_scale, device=DEV)
+               for s in seqs]
+    inputs = make_batch_inputs(per_seq)
+    kf0 = torch.as_tensor(np.stack([s["gt_pos"][0] for s in seqs]), dtype=torch.float32,
+                          device=DEV)
+    # Warm-up on a short prefix (first-use library loads, allocator growth).
+    run_batch_scan(eng, stack_states([init(s) for s in seqs]), _first(inputs, 2), kf0)
+    state0 = stack_states([init(s) for s in seqs])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    final, res = run_batch_scan(eng, state0, inputs, kf0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    fps = [B * N / elapsed]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run_batch_scan(eng, state0, inputs, kf0)
+        torch.cuda.synchronize()
+        fps.append(B * N / (time.perf_counter() - t0))
+
+    p = res.p_wc.cpu().numpy()
+    if p.shape != (B, N, 3) or not np.isfinite(p).all():
+        _fail(f"{name}: non-finite or misshapen poses {p.shape}")
+    ates = [ate_rmse(np.concatenate([s["gt_pos"][:1], p[b]]), s["gt_pos"][: N + 1],
+                     align=False) for b, s in enumerate(seqs)]
+    kfs = res.is_keyframe.sum(dim=1).cpu().numpy()
+    print(f"path {name}: {B} sequences x {N} frames in {elapsed:.3f} s = {B * N / elapsed:.2f} "
+          f"frames/s aggregate, {N / elapsed:.2f} batched steps/s "
+          f"({bp.backend or 'default SystemConfig'}, K={cfg.frontend.max_keypoints}, 480x752, "
+          f"{'GT scale' if bp.gt_scale else 'IMU scale, GT-free'}); ATE per entry min "
+          f"{min(ates):.4f} / median {float(np.median(ates)):.4f} / max {max(ates):.4f} m; "
+          f"keyframes per entry {kfs.min()}-{kfs.max()}; vi_engaged "
+          f"{int(final.vi_engaged.sum())} of {B}; peak device memory {peak_mb:.1f} MiB; "
+          f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"path {name}: aggregate frames/s over {len(fps)} runs {[round(f, 2) for f in fps]}, "
+          f"median {float(np.median(fps)):.2f}", flush=True)
+    if bp.note:
+        print(f"path {name}: {bp.note}", flush=True)
+    for counter, n in launches.items():
+        if n != bp.per_step.get(counter, 0) * N:
+            _fail(f"{name}: {counter} launched {n} times over {N} batched steps (expected "
+                  f"{bp.per_step.get(counter, 0)} per step)")
+    if bp.accuracy and not max(ates) < 0.5:
+        _fail(f"{name}: ATE {max(ates)} >= 0.5 m")
+
+    syncs = _host_syncs(lambda: run_batch_scan(eng, final, _first(inputs, 1), kf0))
+    print(f"path {name}: host syncs inside one batched step: {len(syncs)} "
+          f"{sorted(set(syncs))}", flush=True)
+    if syncs:
+        _fail(f"{name}: {len(syncs)} host syncs inside a batched step")
+
+    # Each entry against the port's own unbatched run on the card, the
+    # same draws (sequence_seed), over the first frames.
+    n_ref, dp, kf_equal = N_SHORT, 0.0, True
+    for b, s in enumerate(seqs):
+        one_in = per_seq[b]._replace(images=per_seq[b].images[:n_ref],
+                                     imu=per_seq[b].imu[:n_ref],
+                                     imu_dt=per_seq[b].imu_dt[:n_ref],
+                                     gt_pos=per_seq[b].gt_pos[:n_ref])
+        _, one = run_sequence_scan(eng, init(s), one_in, seed=sequence_seed(0, b))
+        kf_equal &= torch.equal(one.is_keyframe, res.is_keyframe[b, :n_ref])
+        dp = max(dp, (one.p_wc - res.p_wc[b, :n_ref]).abs().max().item())
+    print(f"path {name}: entries vs unbatched card runs over {n_ref} frames: keyframes equal "
+          f"{kf_equal}, max |dp_wc| {dp:.3e} m", flush=True)
+    if not kf_equal or not dp <= 1e-3:
+        _fail(f"{name}: a batch entry disagrees with its unbatched run")
+    return launches, (eng, state0, inputs, kf0)
+
+
+def trace_batch_path(name, eng, state0, inputs, kf0):
+    """The trace of a batched path's first steps, then of one step's RANSAC
+    draws alone (B generators, made before the vmap; their launches are
+    part of the step's)."""
+    from vislam_tpu_torch.engine import run_batch_scan, sequence_seed
+    from vislam_tpu_torch.engine.batch import batch_noises
+
+    n = BATCH_PATHS[name].trace_steps
+    sub = _first(inputs, n)
+    _trace(name, n, lambda: run_batch_scan(eng, state0, sub, kf0), "batched step")
+    seeds = [sequence_seed(0, b) for b in range(inputs.images.shape[0])]
+    _trace(f"{name} draws", 1, lambda: batch_noises(eng, seeds, 0, state0.kf_feat.uv.shape[-2]),
+           "batched step")
 
 
 def refine_check(eng, state) -> None:
@@ -1005,6 +1429,10 @@ def main() -> None:
           f"{torch.backends.cudnn.allow_tf32}", flush=True)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         _fail("TF32 is enabled")
+    # An operator without a batching rule raises under vmap instead of
+    # looping over the batch's entries one by one.
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    print("vmap per-example fallback disabled", flush=True)
 
     t0 = time.perf_counter()
     for name, path in zip(build.SOURCES, build.build_all(build.SOURCES)):
@@ -1020,6 +1448,16 @@ def main() -> None:
           flush=True)
 
     t0 = time.perf_counter()
+    # The batched paths' sequences: seeds 0 to B - 1 (seed 0 is `seq`), each
+    # as long as the longest path that steps it.
+    seqs = [seq] + [make_synthetic_sequence(SyntheticConfig(
+        n_frames=1 + max(bp.frames for bp in BATCH_PATHS.values() if bp.sequences > s),
+        n_landmarks=300, seed=s)) for s in range(1, max(bp.sequences
+                                                      for bp in BATCH_PATHS.values()))]
+    print(f"data: {len(seqs)} sequences for the batched paths in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     rows = kernel_phase(seq, SystemConfig())
     _phase("kernels", t0)
     # Each row's launches come from the run of the path that uses it (the
@@ -1028,7 +1466,9 @@ def main() -> None:
                 "response_nms:dog": "dog", "response_nms:hessian": "kaze",
                 "response_nms:fast": "akaze", "response_nms:_gradmag2": "kaze",
                 "fed_evolve": "kaze", "match_top2:d128": "default",
-                "match_top2:d256": "akaze", "match_top2:window": SLAM_PATH}
+                "match_top2:d256": "akaze", "match_top2:window": SLAM_PATH,
+                "response_nms:shi_tomasi:batch8": "batch8", "match_top2:batch8_pairs": "batch8",
+                "match_top2:batch8_window": "batch_slam"}
     launches, profiled = {}, {}
     for name in PATHS:
         t0 = time.perf_counter()
@@ -1039,6 +1479,11 @@ def main() -> None:
     t0 = time.perf_counter()
     refine_check(*profiled[SLAM_PATH][:2])
     _phase("refine check", t0)
+    batched = {}
+    for name in BATCH_PATHS:
+        t0 = time.perf_counter()
+        launches[name], batched[name] = batch_path_phase(name, seqs)
+        _phase(f"path {name}", t0)
     # The order of what follows: see the module's docstring.
     t0 = time.perf_counter()
     for name, ctx in profiled.items():
@@ -1051,6 +1496,10 @@ def main() -> None:
     for name, ctx in profiled.items():
         t0 = time.perf_counter()
         trace_path(name, *ctx)
+        _phase(f"trace {name}", t0)
+    for name, ctx in batched.items():
+        t0 = time.perf_counter()
+        trace_batch_path(name, *ctx)
         _phase(f"trace {name}", t0)
     for row in rows:
         row["launches"] = launches[row_path[row["name"]]][row["counter"]]

@@ -238,3 +238,20 @@ def test_extract_features_default_overlaps_reference(frame):
     overlap = len(a & b) / max(len(a), 1)
     assert overlap >= 0.95, overlap
     assert abs(len(a) - len(b)) <= 0.02 * len(a)
+
+
+@pytest.mark.parametrize("radius", [1, 3])
+def test_nms_radius_matches_reference_detector(frame, radius):
+    """frontend.nms_radius 1 and 3: the port takes the response (the
+    kernel's raw field on the card, the plain twin here) through the
+    (2r+1)^2 NMS, as the reference routes any radius but 2; with the
+    float32 image pipeline both detect the same keypoints, and the radius
+    changes which ones (against radius 2)."""
+    cfg_j = JFrontend(image_dtype="float32", nms_radius=radius)
+    cfg_t = TFrontend(image_dtype="float32", nms_radius=radius)
+    j = j_extract(jnp.asarray(frame), cfg_j)
+    t = t_extract(torch.from_numpy(frame.copy()), cfg_t)
+    assert _key(t) == _key(j)
+    np.testing.assert_array_equal(t.mask.numpy(), np.asarray(j.mask))
+    assert _key(t) != _key(t_extract(torch.from_numpy(frame.copy()),
+                                     TFrontend(image_dtype="float32")))

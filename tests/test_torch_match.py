@@ -415,3 +415,43 @@ def test_batched_twin_with_ties_equals_single_calls():
         one = match_top2_plain(_t(a), _t(ma), _t(b[i]), _t(mb[i]))
         for x, y in zip(batched, one):
             assert torch.equal(x[i], y)
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("a_group", ["1", "W", "Bt"])
+def test_twin_a_group_matches_pallas_per_pair(a_group, gated):
+    """The plain twin's grouped modes on Bt = 6 sets B: a_group = 1 (an A per
+    pair: the per-frame match and the gated rescue of a batch of
+    sequences), W = 3 (two groups of A: the window match of a batch) and
+    Bt (one shared A: one sequence's window match), ungated and with the
+    gate batched (uv_pred per group of A, uv_b per set). Every entry z
+    equals the reference's Pallas kernel (interpret mode) on the single
+    pair (A of group z // a_group, B z), exactly: BRIEF-like descriptors
+    (distances multiples of 1/64, ties included)."""
+    Bt, K = 6, 128
+    groups = {"1": Bt, "W": 2, "Bt": 1}[a_group]
+    size = Bt // groups
+    rng = np.random.default_rng(groups + 10 * gated)
+    pairs = [_brief_pair(K, seed=int(s)) for s in rng.integers(0, 1000, Bt)]
+    a = np.stack([pairs[g * size][0] for g in range(groups)])
+    ma = np.stack([pairs[g * size][2] for g in range(groups)])
+    uva = np.stack([pairs[g * size][4] for g in range(groups)])
+    b, mb, uvb = (np.stack([p[i] for p in pairs]) for i in (1, 3, 5))
+    gate = dict(uv_pred=_t(uva), uv_b=_t(uvb), gate_radius=GATE) if gated else {}
+    if a_group == "Bt":       # the shared form: A (K, D) without the group axis
+        got = match_top2_plain(_t(a[0]), _t(ma[0]), _t(b), _t(mb),
+                               **({**gate, "uv_pred": _t(uva[0])} if gated else {}))
+    else:
+        got = match_top2_plain(_t(a), _t(ma), _t(b), _t(mb), **gate)
+    assert got[0].shape == (Bt, K) and got[3].shape == (Bt, K)
+    for z in range(Bt):
+        g = z // size
+        pg = dict(uv_pred=jnp.asarray(uva[g]), uv_b=jnp.asarray(uvb[z]),
+                  gate_radius=GATE) if gated else {}
+        p = match_top2_pallas(jnp.asarray(a[g]), jnp.asarray(ma[g]), jnp.asarray(b[z]),
+                              jnp.asarray(mb[z]), interpret=True, **pg)
+        for x, y in zip(got, p):
+            np.testing.assert_array_equal(x[z].numpy(), np.asarray(y))
+    if gated:   # the gate left some rows without a candidate
+        ungated = match_top2_plain(_t(a), _t(ma), _t(b), _t(mb))
+        assert (got[0] >= 5e8).sum() > (ungated[0] >= 5e8).sum()

@@ -1,9 +1,19 @@
-"""Engine state, per-frame step and sequence loop (port of vislam_tpu.engine)."""
+"""Engine state, per-frame step, sequence loop and batched sequences (port of
+vislam_tpu.engine)."""
 
-from vislam_tpu_torch.engine.state import EngineState, KeyframeWindow, init_state
+from vislam_tpu_torch.engine.state import (
+    EngineState,
+    KeyframeWindow,
+    init_state,
+    stack_states,
+    unstack_states,
+)
 from vislam_tpu_torch.engine.engine import FrameResult, VIOEngine
 from vislam_tpu_torch.engine.batch import (
     SequenceInputs,
+    make_batch_inputs,
     make_sequence_inputs,
+    run_batch_scan,
     run_sequence_scan,
+    sequence_seed,
 )

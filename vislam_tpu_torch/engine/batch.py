@@ -1,16 +1,22 @@
 """Offline sequence processing (port of `vislam_tpu/engine/batch.py`): the
-step looped over a sequence staged on the device.
+step looped over a sequence staged on the device, and over B sequences
+stepped together.
 
 The reference runs the frame loop as one lax.scan; here it is a Python loop
 over frames whose inputs already live on the device, with the GT-scale
 bookkeeping (distance since the last keyframe) carried on the device too,
 so no frame waits on the host. GT-free sequences (use_gt_scale False) run
 every frame on the IMU scale (the reference's gt_norm = -1).
+
+`run_batch_scan` is the multi-sequence throughput mode: each frame is one
+`torch.func.vmap` call of the step over the B sequences, so every launch
+of the step serves the whole batch; the three kernels' custom ops fold the
+mapped dimension into their own batch (`ops/*_kernel.py`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +28,7 @@ from vislam_tpu_torch.engine.engine import (
     require_device,
 )
 from vislam_tpu_torch.engine.state import EngineState
+from vislam_tpu_torch.frontend.pose import gumbel_noise
 
 
 class SequenceInputs(NamedTuple):
@@ -87,3 +94,81 @@ def run_sequence_scan(eng: VIOEngine, state0: EngineState, inputs: SequenceInput
         kf_gt_pos = torch.where(res.is_keyframe, gt_p, kf_gt_pos)
         results.append(res)
     return state, FrameResult(*[torch.stack(f) for f in zip(*results)])
+
+
+def make_batch_inputs(inputs: Sequence[SequenceInputs]) -> SequenceInputs:
+    """B sequences' staged inputs of one length -> one SequenceInputs with
+    leading dims (B, N); use_gt_scale, a host flag, is shared by the batch
+    (as in the reference's run_batch_scan)."""
+    flags = {i.use_gt_scale for i in inputs}
+    if len(flags) != 1:
+        raise ValueError("the sequences of a batch share use_gt_scale")
+    return SequenceInputs(*[torch.stack(f) for f in zip(*[i[:4] for i in inputs])],
+                          use_gt_scale=flags.pop())
+
+
+def sequence_seed(seed: int, b: int) -> int:
+    """The seed of sequence b in a batch run with `seed` (the role of the
+    reference's split(PRNGKey(seed), B)[b]): entry b of run_batch_scan
+    draws as run_sequence_scan(..., seed=sequence_seed(seed, b)) does."""
+    return int(np.random.SeedSequence([seed, b]).generate_state(1, np.uint32)[0])
+
+
+def batch_noises(eng: VIOEngine, seeds: Sequence[int], n: int, M: int):
+    """Frame n's RANSAC draws of every sequence of a batch, (B, 2, H, M)
+    each for the main and the rescue solve: sequence b's frame generator
+    (`frame_generator(seeds[b], n)`), main first, then rescue, as the
+    unbatched step draws them. These draws are the only per-sequence work
+    of a batched frame: vmap refuses a random draw inside the map, so they
+    are made before it, B generators a frame."""
+    H = eng.cfg.backend.ransac_hyps
+    gens = [frame_generator(s, n, eng.device) for s in seeds]
+    draws = [(gumbel_noise(g, H, M, eng.device), gumbel_noise(g, H, M, eng.device))
+             for g in gens]
+    return torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
+
+
+def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceInputs,
+                   kf_gt_pos0, seed: int = 0, noises=None):
+    """Run the step over B sequences together (port of the reference's
+    `run_batch_scan`, `vislam_tpu/engine/batch.py:139-161`).
+
+    states0: an EngineState with a leading B on every leaf
+    (`engine/state.py::stack_states`); inputs_batch: (B, N, ...) inputs
+    (`make_batch_inputs`), use_gt_scale shared; kf_gt_pos0: (B, 3), each
+    sequence's GT position at its first keyframe. Each frame is ONE
+    torch.func.vmap call of the step over the batch: GT scale with a
+    batched distance since each sequence's last keyframe (kept on the
+    device), GT-free with the host float -1.0 for every sequence.
+
+    Sequence b draws frame n's hypotheses from
+    `frame_generator(sequence_seed(seed, b), n)`, so entry b equals
+    run_sequence_scan(..., seed=sequence_seed(seed, b)); `noises[b][n] =
+    (noise, noise_rescue)` overrides them (stacked once, before the frames).
+    Returns (final state (B, ...), FrameResult (B, N, ...)).
+    """
+    B, N = inputs_batch.images.shape[:2]
+    M = states0.kf_feat.uv.shape[-2]
+    kf_gt_pos = torch.as_tensor(kf_gt_pos0, dtype=torch.float32).to(eng.device)
+    if noises is not None:
+        given = [torch.stack([torch.stack([nz[j] for nz in row]) for row in noises], 1)
+                 for j in (0, 1)]          # (N, B, 2, H, M) each
+    seeds = [sequence_seed(seed, b) for b in range(B)]
+    gt_scale = inputs_batch.use_gt_scale
+
+    def step(state, image, imu, imu_dt, gt_norm, noise, noise_rescue):
+        return eng._step(state, image, imu, imu_dt, gt_norm if gt_scale else -1.0, None,
+                         noise, noise_rescue)
+
+    batched = torch.func.vmap(step, in_dims=(0, 0, 0, 0, 0 if gt_scale else None, 0, 0))
+    state, results = states0, []
+    for n in range(N):
+        noise, noise_rescue = batch_noises(eng, seeds, n, M) if noises is None \
+            else (given[0][n], given[1][n])
+        gt_p = inputs_batch.gt_pos[:, n]
+        gt_norm = torch.linalg.vector_norm(gt_p - kf_gt_pos, dim=-1) if gt_scale else None
+        state, res = batched(state, inputs_batch.images[:, n], inputs_batch.imu[:, n],
+                             inputs_batch.imu_dt[:, n], gt_norm, noise, noise_rescue)
+        kf_gt_pos = torch.where(res.is_keyframe[:, None], gt_p, kf_gt_pos)
+        results.append(res)
+    return state, FrameResult(*[torch.stack(f, 1) for f in zip(*results)])

@@ -96,7 +96,7 @@ def frame_generator(seed: int, idx: int, device) -> torch.Generator:
     return g
 
 
-def _check_supported(cfg: SystemConfig, device: torch.device) -> None:
+def _check_supported(cfg: SystemConfig) -> None:
     fe, be, en = cfg.frontend, cfg.backend, cfg.engine
     unsupported = [
         (en.vision_rotation, "engine.vision_rotation",
@@ -106,8 +106,6 @@ def _check_supported(cfg: SystemConfig, device: torch.device) -> None:
         (fe.oriented, "frontend.oriented", "queue 1, frontend variants (oriented SIFT)"),
         (fe.guided_gate_px > 0, "frontend.guided_gate_px",
          "queue 1, frontend variants (always-on guided matching)"),
-        (fe.nms_radius != 2 and device.type == "cuda", "frontend.nms_radius != 2 on CUDA",
-         "queue 2, kernel 1 (the kernel implements 5x5 NMS)"),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -133,7 +131,7 @@ class VIOEngine:
 
     def __init__(self, calib: CameraCalib, cfg: SystemConfig = SystemConfig(),
                  seed: int = 0, *, device="cuda"):
-        _check_supported(cfg, torch.device(device))
+        _check_supported(cfg)
         self.device = require_device(device)
         self.calib = calib
         self.cfg = cfg
@@ -181,9 +179,14 @@ class VIOEngine:
                           self._to_device(imu_dt), gt_t_norm, gen, noise, noise_rescue)
 
     def _step(self, state: EngineState, image, imu, imu_dt, gt_t_norm,
-              gen: torch.Generator, noise=None, noise_rescue=None):
+              gen: torch.Generator | None, noise=None, noise_rescue=None):
         """The step body. gt_t_norm: a () device tensor or a float, >= 0 (GT
-        scale), or a negative float (GT-free: IMU scale, the alignment)."""
+        scale), or a negative float (GT-free: IMU scale, the alignment).
+
+        The RANSAC draws come from `noise` / `noise_rescue`, or where one is
+        not given from `gen`. Under `torch.func.vmap` (`run_batch_scan`)
+        gen is None and both draws are inputs: vmap refuses a random draw
+        inside the map."""
         gt_free = not torch.is_tensor(gt_t_norm) and gt_t_norm < 0
         cfg = self.cfg
         fe, be, en = cfg.frontend, cfg.backend, cfg.engine
@@ -237,6 +240,8 @@ class VIOEngine:
 
         # ---------------- two-view relative pose
         H_hyp, M = be.ransac_hyps, uv_i.shape[0]
+        if gen is None and (noise is None or noise_rescue is None):
+            raise ValueError("the step needs noise and noise_rescue, or a generator")
         if noise is None:
             noise = gumbel_noise(gen, H_hyp, M, self.device)
         if noise_rescue is None:

@@ -5,9 +5,12 @@ Tracks are anchored at the newest keyframe of the window: its K keypoint
 rows are the track slots, and every window keyframe is matched directly
 against it, as ONE batched call of the match kernel (`ops/match_kernel.py`,
 the anchor shared by the W slots; the bf16 bank widened to float32, which
-is exact). Tracks seen in >= 2 keyframes are triangulated from their first
-and last observation and refined by `backend/ba.py` (vision only) or
-`backend/vi_ba.py` (with the window's IMU factors, velocities and bias).
+is exact). Under `run_batch_scan`'s vmap each sequence has its own anchor:
+the op's vmap rule folds the B sequences into one call with a_group = W
+(B anchors, B x W slots). Tracks seen in >= 2 keyframes are triangulated
+from their first and last observation and refined by `backend/ba.py`
+(vision only) or `backend/vi_ba.py` (with the window's IMU factors,
+velocities and bias).
 
 Every gather is an index_select or gather with clamped indices, every
 median is the reference's sort-and-take rule, and every BA -> state write

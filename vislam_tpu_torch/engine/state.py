@@ -90,6 +90,24 @@ def tree_where(cond, a, b):
     return a if a is b else torch.where(cond, a, b)
 
 
+def stack_states(states) -> EngineState:
+    """Per-sequence states (nested NamedTuples of tensors of one structure)
+    -> one state whose every leaf has a leading batch dimension B, the
+    input of `engine/batch.py::run_batch_scan`."""
+    first = states[0]
+    if isinstance(first, tuple):
+        return type(first)(*[stack_states(leaves) for leaves in zip(*states)])
+    return torch.stack(states)
+
+
+def unstack_states(state) -> list:
+    """A batched state (leading B on every leaf) -> its B per-sequence
+    states, each leaf a view of the batched one."""
+    if isinstance(state, tuple):
+        return [type(state)(*leaves) for leaves in zip(*[unstack_states(x) for x in state])]
+    return list(state.unbind(0))
+
+
 def _eye_stack(W, device):
     return torch.eye(3, dtype=torch.float32, device=device).repeat(W, 1, 1)
 

@@ -33,9 +33,11 @@ def match_descriptors(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.8,
     in B), uv_b (N,2) and gate_radius > 0, candidate pairs outside the
     prediction disc are excluded before the ratio test.
 
-    Batched (ungated): desc_b (Bt, N, D), mask_b (Bt, N) match Bt sets
-    against a shared A in one kernel call (`ops/match_kernel.py`); every
-    field of the result gains the leading Bt.
+    Batched: desc_b (Bt, N, D), mask_b (Bt, N) (gated: uv_b (Bt, N, 2))
+    match Bt sets against a shared A in one kernel call
+    (`ops/match_kernel.py`); every field of the result gains the leading
+    Bt. Under torch.func.vmap, gated or not, the kernel's vmap rule makes
+    the mapped match one call with an A per sequence.
     """
     min1, min2, arg1, colarg = match_top2(desc_a, mask_a, desc_b, mask_b,
                                           uv_pred, uv_b, gate_radius)

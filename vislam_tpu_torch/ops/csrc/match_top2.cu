@@ -22,8 +22,8 @@
 // the distance, the row top-2 and column compares, the disc test) at
 // 67 TFLOP/s, adds 0.06 us (0.11 us): 0.98 us (1.89 us) ungated. The
 // bytes, 4 D (K + N) in (0.8 MB; 1.6 MB), take 0.24 us (0.47 us) at
-// 3.35 TB/s. A batch of W pairs sharing A multiplies the operations by W.
-// The batched call (the window match) reads the bfloat16 window bank's
+// 3.35 TB/s. A batch of pairs multiplies the operations by its size. The
+// window match reads the bfloat16 window bank's
 // values widened to float32, so its a.b needs one bfloat16 pass, 2 W K N D
 // at 989 TFLOP/s: at W = 10, K = N = 768, D = 128, 1.53 us plus 0.62 us of
 // the rest, 2.14 us; its 4.5 MB take 1.33 us. On such operands two of the
@@ -73,15 +73,19 @@
 // counters, then the match kernel (the first version made 3: a memset, the
 // kernel, and a kernel unpacking the column keys).
 //
-// Batch. One call also matches a batch of pairs (the window-track match of
-// vislam_tpu/engine/refine.py:36-63: the anchor keyframe against each of
-// the W window slots, a vmapped XLA match in the reference): the grid's
-// third dimension runs over the batch. B, its mask and every output advance
-// by one entry's size per batch index; A and its mask are shared by the
-// whole batch (stride 0). Each entry has its own column
-// keys, row partials and counters in the scratch, all reset by the one
-// reset launch, so a batched call is still 2 launches. The gated match is
-// never batched (the window match is ungated).
+// Batch. One call also matches a batch of pairs: the grid's third
+// dimension runs over the batch entries z. B, its mask, (gated) its
+// keypoint positions uv_b and every output advance by one entry's size per
+// z; A, its mask and (gated) its predicted positions uv_pred are read from
+// group z / a_group. So a_group = batch shares one A with the whole batch
+// (the window-track match of one sequence, vislam_tpu/engine/refine.py:36-63:
+// the anchor keyframe against each of the W window slots, a vmapped XLA
+// match in the reference), a_group = 1 gives every pair its own A (the
+// per-frame match and the gated rescue of B sequences stepped together,
+// vislam_tpu/engine/batch.py:139-161), and a_group = W the window match of
+// B sequences (B anchors, B x W slots). Each entry has its own column keys,
+// row partials and counters in the scratch, all reset by the one reset
+// launch, so a batched call is 2 launches in every mode, gated or not.
 //
 // Times it replaces (NVIDIA H100 80GB HBM3, 700 W, back-to-back launches):
 // 186.9 / 185.8 us ungated and 197.1 / 195.9 us gated at K = 768, D = 128;
@@ -184,13 +188,13 @@ __global__ void reset_kernel(unsigned long long* __restrict__ colkey, int n_keys
 // Grid (column tiles, row tiles, batch). For each batch entry, rowpart
 // (column tiles, K) holds each block's row partials as (m1 bits, m2 bits,
 // a1, 0); counts holds one counter per row strip, then one per column
-// strip. A and ma are shared by every batch entry.
+// strip. Entry z reads A, ma and uv_pred of group z / a_group.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 match_top2_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                   const uint8_t* __restrict__ ma, const uint8_t* __restrict__ mb,
                   const float* __restrict__ uv_pred, const float* __restrict__ uv_b,
-                  float r2, int gated, int K, int N,
+                  float r2, int gated, int K, int N, int a_group,
                   float* __restrict__ min1, float* __restrict__ min2,
                   int* __restrict__ arg1, int* __restrict__ colarg,
                   unsigned long long* __restrict__ colkey, int4* __restrict__ rowpart,
@@ -209,10 +213,16 @@ match_top2_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
   const int g = lane >> 2, t = lane & 3;           // mma fragment coordinates
   const int wm = warp & 1, wn = warp >> 1;
   const int c0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
-  {  // this block's batch entry
-    const size_t e = blockIdx.z;
+  {  // this block's batch entry and its group of A
+    const size_t e = blockIdx.z, grp = blockIdx.z / a_group;
+    A += grp * K * D;
+    ma += grp * K;
     Bm += e * N * D;
     mb += e * N;
+    if (gated) {
+      uv_pred += grp * K * 2;
+      uv_b += e * N * 2;
+    }
     min1 += e * K;
     min2 += e * K;
     arg1 += e * K;
@@ -415,7 +425,8 @@ template <int D>
 cudaError_t launch(const float* a, const float* b, const unsigned char* ma,
                    const unsigned char* mb, const float* uv_pred, const float* uv_b,
                    float r2, int gated, float* min1, float* min2, int* arg1, int* colarg,
-                   char* scratch, const Layout& l, int K, int N, int batch, cudaStream_t s) {
+                   char* scratch, const Layout& l, int K, int N, int batch, int a_group,
+                   cudaStream_t s) {
   static std::atomic<unsigned long long> configured{0};
   cudaError_t e = set_smem_once(configured, reinterpret_cast<const void*>(match_top2_kernel<D>),
                                 smem_bytes<D>());
@@ -428,7 +439,7 @@ cudaError_t launch(const float* a, const float* b, const unsigned char* ma,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   match_top2_kernel<D><<<dim3(l.col_tiles, l.row_tiles, batch), THREADS, smem_bytes<D>(), s>>>(
-      a, b, ma, mb, uv_pred, uv_b, r2, gated, K, N, min1, min2, arg1, colarg, colkey,
+      a, b, ma, mb, uv_pred, uv_b, r2, gated, K, N, a_group, min1, min2, arg1, colarg, colkey,
       reinterpret_cast<int4*>(scratch + l.rowpart), counts);
   return cudaGetLastError();
 }
@@ -442,22 +453,25 @@ extern "C" size_t match_top2_scratch_bytes(int K, int N, int batch) {
 }
 
 // `batch` pairs (a, b): b (batch, N, D) float32 with D = 128 or 256, a
-// (K, D) shared by every pair, both 16-byte aligned; ma (K,), mb (batch, N)
-// bool as bytes; uv_pred (K, 2), uv_b (N, 2) float32, read only when
-// gated != 0 (then batch must be 1); r2 the squared gate radius. Outputs min1, min2 (batch, K) float32,
-// arg1 (batch, K) int32, colarg (batch, N) int32; scratch:
-// match_top2_scratch_bytes(K, N, batch) bytes, 16-byte aligned. All
-// contiguous device buffers. Two launches on `stream`; returns the first
-// CUDA error (0 on success); never synchronises.
+// (batch / a_group, K, D), entry z paired with a's group z / a_group
+// (a_group divides batch), both 16-byte aligned; ma (batch / a_group, K),
+// mb (batch, N) bool as bytes; uv_pred (batch / a_group, K, 2), uv_b
+// (batch, N, 2) float32, read only when gated != 0; r2 the squared gate
+// radius. Outputs min1, min2 (batch, K) float32, arg1 (batch, K) int32,
+// colarg (batch, N) int32; scratch: match_top2_scratch_bytes(K, N, batch)
+// bytes, 16-byte aligned. All contiguous device buffers. Two launches on
+// `stream`; returns the first CUDA error (0 on success); never
+// synchronises.
 extern "C" int match_top2(const float* a, const float* b,
                           const unsigned char* ma, const unsigned char* mb,
                           const float* uv_pred, const float* uv_b, float r2,
                           int gated, float* min1, float* min2, int* arg1,
                           int* colarg, void* scratch, size_t scratch_bytes, int K, int N,
-                          int D, int batch, void* stream) {
+                          int D, int batch, int a_group, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((D != 128 && D != 256) || K < 1 || N < 1 || batch < 1 || batch > 65535 ||
-      (gated && batch != 1) || (size_t)N * batch > INT_MAX / 2)
+      a_group < 1 || batch % a_group != 0 || (size_t)N * batch > INT_MAX / 2 ||
+      (size_t)K * (batch / a_group) > INT_MAX / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout l = layout(K, N, batch);
   if (scratch_bytes < l.bytes || l.row_tiles > 65535)
@@ -465,8 +479,8 @@ extern "C" int match_top2(const float* a, const float* b,
   char* sc = static_cast<char*>(scratch);
   const cudaError_t e =
       D == 128 ? launch<128>(a, b, ma, mb, uv_pred, uv_b, r2, gated, min1, min2, arg1, colarg,
-                             sc, l, K, N, batch, s)
+                             sc, l, K, N, batch, a_group, s)
                : launch<256>(a, b, ma, mb, uv_pred, uv_b, r2, gated, min1, min2, arg1, colarg,
-                             sc, l, K, N, batch, s);
+                             sc, l, K, N, batch, a_group, s);
   return static_cast<int>(e);
 }

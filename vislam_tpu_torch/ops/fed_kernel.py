@@ -12,7 +12,8 @@ the gradients, edge values for the flux) and agrees with this only about
 
 A CPU tensor runs the plain twin; a CUDA tensor launches
 `csrc/fed_evolve.cu` along `fed_schedule` (several steps fused per launch)
-or raises.
+or raises, through the custom op `vislam_torch::fed_evolve`, whose vmap
+rule makes a mapped call one call of the kernel.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from vislam_tpu_torch.frontend.pyramid import gaussian_blur, scharr_gradients
-from vislam_tpu_torch.ops import build
+from vislam_tpu_torch.ops import build, fold_mapped
 
 
 def pm_g2(gx, gy, k):
@@ -106,12 +108,21 @@ def _lib():
     return fn
 
 
-def _launch_schedule(x, kb, taus):
-    """Run the kernel along fed_schedule(len(taus)) on contiguous float32
-    (B, H, W) CUDA fields x with k (B,); returns the evolved fields. The
-    call counts once in `fed_evolve.launches`."""
+@torch.library.custom_op("vislam_torch::fed_evolve", mutates_args=(), device_types="cuda")
+def _fed_op(x: Tensor, k: Tensor, taus: list[float]) -> Tensor:
+    """The kernel along fed_schedule(len(taus)) on (B, H, W) float32 fields
+    x with k (B,); returns the evolved fields. The call counts once in
+    `fed_evolve.launches`."""
     B, H, W = x.shape
-    sched = fed_schedule(len(taus))
+    n = len(taus)
+    if x.dtype != torch.float32 or k.dtype != torch.float32 or not x.is_contiguous() \
+            or not k.is_contiguous():
+        raise ValueError("fed_evolve kernel takes contiguous float32 fields and "
+                         f"float32 k, got {x.dtype}, {k.dtype}, "
+                         f"contiguous={x.is_contiguous()}")
+    if n < 1 or B > 65535 or B * (H + 8 * n) * (W + 8 * n) >= 2 ** 31:
+        raise ValueError(f"fed_evolve kernel: {n} steps on {tuple(x.shape)} out of range")
+    sched = fed_schedule(n)
     e0 = sched[0].dst_ext
     bufs = [torch.empty(B * (H + 2 * e0) * (W + 2 * e0), dtype=torch.float32, device=x.device)
             for _ in range(min(len(sched) - 1, 2))]
@@ -126,7 +137,7 @@ def _launch_schedule(x, kb, taus):
             se, de = ln.src_ext, ln.dst_ext
             err = fn(src.data_ptr(), -se, -se, H + 2 * se, W + 2 * se,
                      dst.data_ptr(), -de, -de, H + 2 * de, W + 2 * de,
-                     kb.data_ptr(), t, ln.steps, B, stream)
+                     k.data_ptr(), t, ln.steps, B, stream)
             if err != 0:
                 raise RuntimeError(f"fed_evolve launch {j} ({ln}) failed: cudaError {err}")
             src = dst
@@ -134,38 +145,47 @@ def _launch_schedule(x, kb, taus):
     return out
 
 
+@_fed_op.register_kernel("cpu")
+def _fed_op_cpu(x, k, taus):
+    return fed_evolve_plain(x, k, taus)
+
+
+@_fed_op.register_fake
+def _fed_op_fake(x, k, taus):
+    return torch.empty_like(x)
+
+
+def _fed_vmap(info, in_dims, x, k, taus):
+    n = info.batch_size
+    out = _fed_op(fold_mapped(x, in_dims[0], n), fold_mapped(k, in_dims[1], n), taus)
+    return out.unflatten(0, (n, -1)), 0
+
+
+torch.library.register_vmap(_fed_op, _fed_vmap)
+
+
 def fed_evolve(L, k, taus):
     """Evolve L (H, W) or (B, H, W) float32 through the FED steps `taus`
     (static floats) with contrast k ((), or (B,) float32 on L's device).
 
-    CPU tensor: the plain version. CUDA tensor: the kernel, launched
+    The custom op `vislam_torch::fed_evolve`: for a CPU tensor the plain
+    version; for a CUDA tensor the kernel, launched
     len(fed_schedule(len(taus))) times (the call counted once in
     `fed_evolve.launches`), ping-ponging two scratch buffers; anything else
-    raises.
+    raises. Its vmap rule folds a mapped dimension into the kernel's batch
+    (k per field): one call for the whole map.
     """
-    taus = tuple(float(t) for t in taus)
+    taus = [float(t) for t in taus]
     if L.dim() not in (2, 3):
         raise ValueError(f"expected (H, W) or (B, H, W), got {tuple(L.shape)}")
+    if L.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {L.device}")
     x = L if L.dim() == 3 else L[None]
-    B, H, W = x.shape
     kb = k.reshape(-1)
-    if kb.shape != (B,) or kb.device != L.device:
+    if kb.shape != (x.shape[0],) or kb.device != L.device:
         raise ValueError(f"k must hold one value per field on {L.device}, got "
                          f"{tuple(k.shape)} on {k.device}")
-    if L.device.type == "cpu":
-        out = fed_evolve_plain(x, kb, taus)
-    elif L.device.type == "cuda":
-        if x.dtype != torch.float32 or kb.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("fed_evolve kernel takes contiguous float32 fields and "
-                             f"float32 k, got {x.dtype}, {kb.dtype}, "
-                             f"contiguous={x.is_contiguous()}")
-        n = len(taus)
-        if n < 1 or B > 65535 or B * (H + 8 * n) * (W + 8 * n) >= 2 ** 31:
-            raise ValueError(f"fed_evolve kernel: {n} steps on {tuple(x.shape)} "
-                             "out of range")
-        out = _launch_schedule(x, kb.contiguous(), taus)
-    else:
-        raise ValueError(f"unsupported device {L.device}")
+    out = _fed_op(x, kb.contiguous(), taus)
     return out if L.dim() == 3 else out[0]
 
 

@@ -7,7 +7,9 @@ the reference's TPU kernel computes it, on the level widened to float32),
 nms is resp at its 5x5 local maxima and -inf elsewhere. `_gradmag2` (the
 contrast-factor statistic of the nonlinear scale space) needs only resp;
 its nms is None. A CPU tensor runs the plain twin; a CUDA tensor launches
-`csrc/response_nms.cu` or raises.
+`csrc/response_nms.cu` or raises, through the custom op
+`vislam_torch::response_nms`, whose vmap rule makes a mapped call one
+launch. Another NMS radius than 2 is applied to resp (`nms`), on both.
 
 Borders. Where the reference has an XLA response (`DETECTOR_RESPONSES`),
 the port pads stage by stage with zeros as XLA's SAME does (shi_tomasi,
@@ -27,9 +29,10 @@ import ctypes
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from vislam_tpu_torch.frontend.pyramid import gaussian_blur, scharr_gradients
-from vislam_tpu_torch.ops import build
+from vislam_tpu_torch.ops import build, fold_mapped
 
 # Family ids, in the order of the CUDA source's `Family` enum.
 FAMILIES = ("shi_tomasi", "harris", "dog", "hessian", "fast", "_gradmag2")
@@ -150,15 +153,21 @@ def _lib():
 TILE_ROWS = (0, 8, 16, 32)
 
 
-def _launch(x, detector: str, tile_rows: int):
-    """(nms, resp) of x, already checked by response_nms, from one launch of
-    the kernel, counted in `response_nms.launches`."""
+@torch.library.custom_op("vislam_torch::response_nms", mutates_args=(), device_types="cuda")
+def _response_op(x: Tensor, detector: str, tile_rows: int) -> tuple[Tensor, Tensor]:
+    """(nms, resp) of the (B, H, W) images x from one launch of the kernel,
+    counted in `response_nms.launches`; nms is (B, 0, 0) for `_gradmag2`."""
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("response_nms kernel takes contiguous float32, "
+                         f"got {x.dtype} contiguous={x.is_contiguous()}")
     B, H, W = x.shape
+    if B * H * W >= 2 ** 31 or B > 65535:
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's indexing")
     resp = torch.empty_like(x)
-    nms_ = None if detector == "_gradmag2" else torch.empty_like(x)
+    nms_ = x.new_empty((B, 0, 0)) if detector == "_gradmag2" else torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _lib()(FAMILIES.index(detector), x.data_ptr(),
-                     None if nms_ is None else nms_.data_ptr(), resp.data_ptr(),
+                     None if detector == "_gradmag2" else nms_.data_ptr(), resp.data_ptr(),
                      B, H, W, tile_rows, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"response_nms ({detector}) launch failed: cudaError {err}")
@@ -166,17 +175,42 @@ def _launch(x, detector: str, tile_rows: int):
     return nms_, resp
 
 
+@_response_op.register_kernel("cpu")
+def _response_op_cpu(x, detector, tile_rows):
+    nms_, resp = response_nms_plain(x, detector)
+    return (x.new_empty((x.shape[0], 0, 0)) if nms_ is None else nms_), resp
+
+
+@_response_op.register_fake
+def _response_op_fake(x, detector, tile_rows):
+    return (x.new_empty((x.shape[0], 0, 0)) if detector == "_gradmag2"
+            else torch.empty_like(x)), torch.empty_like(x)
+
+
+def _response_vmap(info, in_dims, x, detector, tile_rows):
+    n = info.batch_size
+    out = _response_op(fold_mapped(x, in_dims[0], n), detector, tile_rows)
+    return tuple(o.unflatten(0, (n, -1)) for o in out), (0, 0)
+
+
+torch.library.register_vmap(_response_op, _response_vmap)
+
+
 def response_nms(img, detector: str = "shi_tomasi", nms_radius: int = 2, *,
                  tile_rows: int = 0):
     """(..., H, W) float32 image(s) -> (nms, resp), same shape (nms None for
     `_gradmag2`).
 
-    CPU tensor: the plain version. CUDA tensor: the hand-written kernel
-    (5x5 NMS only), one launch per call, counted per family in
-    `response_nms.launches`; anything else raises. `tile_rows` fixes the
-    kernel's tile height to 8, 16 or 32 rows, so that a check on the card
-    can reach each (the plain version has no tiles); 0, the default, lets
-    the kernel choose from the shape.
+    The custom op `vislam_torch::response_nms` computes resp and its 5x5
+    NMS: for a CPU tensor the plain version, for a CUDA tensor the
+    hand-written kernel, one launch per call, counted per family in
+    `response_nms.launches`; anything else raises. Its vmap rule folds a
+    mapped dimension into the kernel's batch: one launch for the whole map.
+    Another `nms_radius` takes the (2r+1)^2 NMS of resp (`nms`), as the
+    reference routes it (`vislam_tpu/frontend/detect.py:257-272`).
+    `tile_rows` fixes the kernel's tile height to 8, 16 or 32 rows, so that
+    a check on the card can reach each (the plain version has no tiles);
+    0, the default, lets the kernel choose from the shape.
     """
     if detector not in FAMILIES:
         raise ValueError(f"unknown detector {detector!r}; one of {FAMILIES}")
@@ -184,22 +218,14 @@ def response_nms(img, detector: str = "shi_tomasi", nms_radius: int = 2, *,
         raise ValueError(f"expected (H, W) or (B, H, W), got {tuple(img.shape)}")
     if tile_rows not in TILE_ROWS:
         raise ValueError(f"tile_rows must be one of {TILE_ROWS}, got {tile_rows}")
-    x = img if img.dim() == 3 else img[None]
-    if img.device.type == "cpu":
-        nms_, resp = response_nms_plain(x, detector, nms_radius)
-    elif img.device.type == "cuda":
-        if nms_radius != 2:
-            raise NotImplementedError("the CUDA kernel implements 5x5 NMS "
-                                      "(nms_radius=2) only")
-        if x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("response_nms kernel takes contiguous float32, "
-                             f"got {x.dtype} contiguous={x.is_contiguous()}")
-        B, H, W = x.shape
-        if B * H * W >= 2 ** 31 or B > 65535:
-            raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's indexing")
-        nms_, resp = _launch(x, detector, tile_rows)
-    else:
+    if img.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {img.device}")
+    x = img if img.dim() == 3 else img[None]
+    nms_, resp = _response_op(x, detector, tile_rows)
+    if detector == "_gradmag2":
+        nms_ = None
+    elif nms_radius != 2:
+        nms_ = nms(resp, nms_radius)
     if img.dim() == 2:
         return (None if nms_ is None else nms_[0]), resp[0]
     return nms_, resp

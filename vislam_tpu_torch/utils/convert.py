@@ -4,9 +4,14 @@ between numpy trees and the port's tensors.
 `state_from_numpy` takes the reference's EngineState after
 `jax.tree.map(np.asarray, state)` (any NamedTuple with the same field
 names) and returns the port's EngineState on `device`; `state_to_numpy`
-goes back. `ba_from_numpy` does the same for the BA trees (BAState,
-BAProblem, ImuFactors): array fields become tensors, the camera
-intrinsics of a BAProblem stay floats, absent optional fields stay None. Dtypes are kept: the window descriptor bank stays bfloat16,
+goes back. Both take a batched state as well (a leading B on every leaf,
+as the reference's run_batch_scan takes it), and `inputs_from_numpy`
+batched inputs ((B, N, ...) leaves, use_gt_scale shared);
+`batch_from_numpy` stacks B per-sequence reference states and inputs
+into the port's batch. `ba_from_numpy` does the same for the BA trees
+(BAState, BAProblem, ImuFactors): array fields become tensors, the camera
+intrinsics of a BAProblem stay floats, absent optional fields stay None.
+Dtypes are kept: the window descriptor bank stays bfloat16,
 masks stay bool, counters stay int32. This module imports neither jax nor
 the reference package; numpy's bfloat16 is the `ml_dtypes` one, imported
 only when a bfloat16 array has to be made.
@@ -19,8 +24,8 @@ import torch
 
 from vislam_tpu_torch.backend.ba import BAProblem, BAState
 from vislam_tpu_torch.backend.vi_ba import ImuFactors
-from vislam_tpu_torch.engine.batch import SequenceInputs
-from vislam_tpu_torch.engine.state import EngineState, KeyframeWindow
+from vislam_tpu_torch.engine.batch import SequenceInputs, make_batch_inputs
+from vislam_tpu_torch.engine.state import EngineState, KeyframeWindow, stack_states
 from vislam_tpu_torch.frontend.features import Features
 
 _NESTED = {("EngineState", "kf_feat"): Features, ("EngineState", "window"): KeyframeWindow}
@@ -68,11 +73,23 @@ def state_to_numpy(state: EngineState) -> EngineState:
 
 
 def inputs_from_numpy(tree, device) -> SequenceInputs:
-    """Reference SequenceInputs (numpy leaves) -> the port's, on `device`."""
+    """Reference SequenceInputs (numpy leaves; batched or not) -> the
+    port's, on `device`. A use_gt_scale per sequence must be one value."""
+    flags = np.unique(np.asarray(tree.use_gt_scale))
+    if flags.size != 1:
+        raise ValueError("the sequences of a batch share use_gt_scale")
     return SequenceInputs(
         images=_tensor(tree.images, device), imu=_tensor(tree.imu, device),
         imu_dt=_tensor(tree.imu_dt, device), gt_pos=_tensor(tree.gt_pos, device),
-        use_gt_scale=bool(np.asarray(tree.use_gt_scale)))
+        use_gt_scale=bool(flags[0]))
+
+
+def batch_from_numpy(states, inputs, device):
+    """B reference EngineStates and SequenceInputs of one length (numpy
+    leaves), one per sequence -> the port's batched state and inputs
+    (`engine/batch.py::run_batch_scan`), on `device`."""
+    return (stack_states([state_from_numpy(s, device) for s in states]),
+            make_batch_inputs([inputs_from_numpy(i, device) for i in inputs]))
 
 
 def inputs_to_numpy(inputs: SequenceInputs) -> SequenceInputs:
