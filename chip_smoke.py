@@ -62,6 +62,37 @@ Phases, each fatal on failure (exit code != 0, no result line):
      peak memory, each entry's ATE, and each entry's first 10 frames
      against its unbatched card run on the same draws (keyframes equal,
      positions within 1e-3 m); batch8 holds every entry's ATE < 0.5 m;
+     Then the port's CLI (`vislam_tpu_torch/cli.py`, phase cli), each
+     check fatal:
+       a. `main(["--synthetic", "61"])` in this process, 3 times: its rows
+          equal the default path's run_sequence_scan on the same sequence
+          (positions within 1e-5 m, keyframes equal), its launches per
+          frame the default path's, ATE < 0.5 m, 0 host syncs inside one
+          step_pipelined call; the host loop's frames/s (median of 3)
+          printed beside run_sequence_scan's from this process, the mean
+          drain time per burst (scripts/torch_host_loop.py resolves
+          the loop's cost over the scan in interleaved rounds);
+       b. a 61-frame EuRoC fixture with a 1 s static IMU prefix and radial
+          distortion (the images warped on the card, the PNGs and the
+          OpenCV XML written by the port): the host loop (ATE < 0.5 m, the
+          prefetch thread's read ms per frame printed), one frame's remap
+          on the card against the CPU's, and --scan's rows against the
+          host loop's (within 1e-5 m, keyframes equal);
+       c. --imu-scale (SLAM mode) on that fixture for 20 frames: finite
+          poses, one window match per step;
+       d. a 31-frame KITTI fixture (vision-only rotation): the CLI's run,
+          then its first 10 frames staged and stepped on the card and, from
+          the card's state each frame, on the CPU with the same draws:
+          keyframes equal; each frame's essential solve on the card equal
+          to the CPU's on the card's own rays; positions within 1e-3 m
+          where the devices' solves agree (a frame with two near-equal-
+          support solutions may take the other one from the features'
+          last-bit rounding: at most 2 of 10, counted); 0 host syncs
+          inside one step_pipelined call;
+       e. --checkpoint over 31 frames, --resume to 61: the rows of the
+          uninterrupted run (within 1e-5 m, keyframes equal);
+       f. `python -m vislam_tpu_torch.cli --synthetic 20` as a
+          subprocess: exit 0 and an ATE line;
   4. stage times: for each 60-frame path, where a frame's wall time goes
      (each stage alone, synchronised; the GT-free paths add
      vi_align_window, slam refine_window);
@@ -106,7 +137,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1408,6 +1441,350 @@ def refine_check(eng, state) -> None:
         _fail("refine check: the card's window refine disagrees with the CPU's")
 
 
+# ---------------------------------------------------------------- phase cli
+
+CLI_FRAMES = N_FRAMES + 1    # --synthetic 61: the default path's sequence
+CLI_SLAM_FRAMES = 20
+CLI_KITTI_FRAMES = 31
+
+
+def _cli(argv, what):
+    """The port CLI's main(argv) in this process; returns its report."""
+    from vislam_tpu_torch import cli
+
+    report = {}
+    try:
+        rc = cli.main(argv, report=report)
+    except SystemExit as e:
+        rc = e.code
+    if rc != 0:
+        _fail(f"cli {what}: exit status {rc}")
+    rows = report["rows"]
+    p = np.array([r["est_p"] for r in rows], np.float64)
+    if p.ndim != 2 or not np.isfinite(p).all():
+        _fail(f"cli {what}: non-finite or missing poses")
+    return report
+
+
+def _rows_equal(what, a, b, atol=1e-5):
+    """Two runs' rows: the same frames and keyframes, positions within atol."""
+    fa, fb = [r["frame"] for r in a], [r["frame"] for r in b]
+    if fa != fb:
+        _fail(f"cli {what}: frames {fa[:3]}... vs {fb[:3]}...")
+    kf_eq = [r["is_kf"] for r in a] == [r["is_kf"] for r in b]
+    dp = float(np.abs(np.array([r["est_p"] for r in a], np.float64)
+                      - np.array([r["est_p"] for r in b], np.float64)).max())
+    print(f"cli {what}: {len(a)} rows, keyframes equal {kf_eq}, max |dp| {dp:.3e} m",
+          flush=True)
+    if not kf_eq or not dp <= atol:
+        _fail(f"cli {what}: the two runs disagree")
+
+
+def _pipelined_syncs(what, eng, state, image, imu, dt, gt_p):
+    """Host syncs inside one step_pipelined call (a pinned uint8 image,
+    numpy IMU and GT), after one call that warms it."""
+    img = torch.from_numpy(image).pin_memory()
+    eng.step_pipelined(state, gt_p, img, imu, dt, gt_p, 1.0)[-1].cpu()
+    syncs = _host_syncs(lambda: eng.step_pipelined(state, gt_p, img, imu, dt, gt_p, 1.0))
+    print(f"cli {what}: host syncs inside one step_pipelined: {len(syncs)} "
+          f"{sorted(set(syncs))}", flush=True)
+    if syncs:
+        _fail(f"cli {what}: {len(syncs)} host syncs inside step_pipelined")
+
+
+def _distorted_euroc_fixture(root, frames):
+    """The EuRoC layout (1 s static IMU prefix) with radial distortion
+    synthesised on its images, as tests/test_cli_distorted.py makes it, and
+    its OpenCV-XML calibration; returns (directory, xml, calib)."""
+    from vislam_tpu_torch.calib import remap_bilinear, write_opencv_xml
+    from vislam_tpu_torch.calib.camera_model import undistort_normalized
+    from vislam_tpu_torch.data import SyntheticConfig, synthetic_calib, write_euroc_fixture
+    from vislam_tpu_torch.data.png import read_png_grey, write_png
+
+    path = os.path.join(root, "euroc")
+    write_euroc_fixture(path, SyntheticConfig(n_frames=frames, n_landmarks=300, seed=0),
+                        static_prefix_s=1.0)
+    clean = synthetic_calib()
+    dist = (-0.15, 0.03, 0.0, 0.0)
+    vv, uu = np.meshgrid(np.arange(clean.height), np.arange(clean.width), indexing="ij")
+    xd = np.stack([(uu - clean.cx) / clean.fx, (vv - clean.cy) / clean.fy], -1)
+    xn = undistort_normalized(torch.from_numpy(xd.astype(np.float32)), dist, iters=10)
+    maps = torch.stack([xn[..., 0] * clean.fx + clean.cx, xn[..., 1] * clean.fy + clean.cy],
+                       -1).to(DEV)
+    cam = os.path.join(path, "mav0", "cam0", "data")
+    for name in sorted(os.listdir(cam)):
+        img = torch.from_numpy(read_png_grey(os.path.join(cam, name))).to(DEV)
+        warped = remap_bilinear(img, maps).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        write_png(os.path.join(cam, name), warped)
+    calib = dataclasses.replace(clean, dist=dist)
+    xml = os.path.join(root, "euroc.xml")
+    write_opencv_xml(xml, calib)
+    return path, xml, calib
+
+
+def _kitti_fixture(root, frames):
+    """tests/test_cli_kitti.py's KITTI layout (no IMU), its XML; returns
+    (directory, xml)."""
+    from scipy.spatial.transform import Rotation as Rsp
+
+    from vislam_tpu_torch.calib import write_opencv_xml
+    from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence, synthetic_calib
+    from vislam_tpu_torch.data.png import write_png
+
+    seq = make_synthetic_sequence(SyntheticConfig(n_frames=frames, n_landmarks=300, seed=15))
+    path = os.path.join(root, "kitti")
+    img_dir = os.path.join(path, "sequences", "00", "image_0")
+    os.makedirs(img_dir)
+    os.makedirs(os.path.join(path, "poses"))
+    for i, img in enumerate(seq["images"]):
+        write_png(os.path.join(img_dir, f"{i:06d}.png"), img)
+    np.savetxt(os.path.join(path, "sequences", "00", "times.txt"), np.arange(frames) * 0.05,
+               fmt="%.6f")
+    with open(os.path.join(path, "poses", "00.txt"), "w") as f:
+        for q, p in zip(seq["gt_quat"], seq["gt_pos"]):
+            R = Rsp.from_quat(np.roll(q, -1)).as_matrix()
+            f.write(" ".join(f"{x:.9f}" for x in np.hstack([R, p[:, None]]).reshape(-1)) + "\n")
+    xml = os.path.join(root, "kitti.xml")
+    write_opencv_xml(xml, synthetic_calib())
+    return path, xml
+
+
+def _rotation_angle(A, B) -> float:
+    """The angle (rad) of the rotation A^T B, from its skew part and trace
+    (accurate near 0, where the arccos of the trace is not)."""
+    M = A.double().cpu().T @ B.double().cpu()
+    w = torch.stack([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]]) / 2.0
+    return float(torch.atan2(torch.linalg.vector_norm(w), (torch.trace(M) - 1.0) / 2.0))
+
+
+def _kitti_card_vs_cpu(path, xml):
+    """The KITTI run's first N_SHORT frames (stage_dataset), stepped in the
+    CLI's configuration (vision-only rotation, one level) on the card and,
+    frame by frame from the card's state, on the CPU, with the same draws
+    (drawn on the CPU). Each frame's essential RANSAC is solved again on
+    the CPU from the card's own rays: it must give the card's solve
+    (inliers equal, rotation within 1e-4 rad, t_dir within 1e-3). Keyframes
+    must be equal; where the two devices' solves agree, positions within
+    1e-3 m. Where they do not, the frame has two solutions of near-equal
+    support and the features' last-bit rounding (kernel against twin)
+    picks one or the other: such frames are counted, at most 2 of 10
+    (frames 2 and 5 on every run of this fixture).
+    Then the host syncs of one step_pipelined."""
+    import vislam_tpu_torch.engine.engine as tengine
+    from vislam_tpu_torch.calib import load_opencv_xml
+    from vislam_tpu_torch.data import KittiDataset
+    from vislam_tpu_torch.engine import VIOEngine, stage_dataset
+    from vislam_tpu_torch.engine.engine import frame_generator
+    from vislam_tpu_torch.frontend.essential import gumbel_hypotheses, ransac_essential
+
+    cfg = _config(dict(levels_used=1), {})
+    cfg = dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine, vision_rotation=True))
+    ds, calib = KittiDataset(path, "00"), load_opencv_xml(xml)
+    fw0 = ds.frame_window(1)
+    card, cpu = VIOEngine(calib, cfg, device=DEV), VIOEngine(calib, cfg, device="cpu")
+    st = card.initialize(fw0.image, q_wb0=fw0.gt_quat, p_w0=fw0.gt_pos)
+    inputs = stage_dataset(ds, 2, 2 + N_SHORT, device=DEV)
+    kf_gt = torch.as_tensor(fw0.gt_pos, dtype=torch.float32).to(DEV)
+    M, H = st.kf_feat.uv.shape[0], cfg.backend.ransac_hyps
+    solves = []
+
+    def spy(*args, **kw):
+        out = ransac_essential(*args, **kw)
+        solves.append((args, kw, out))
+        return out
+
+    tengine.ransac_essential = spy
+    try:
+        kf_eq, dp_agree, ambiguous, solve_err = True, 0.0, [], [0.0, 0.0]
+        for n in range(N_SHORT):
+            noise = gumbel_hypotheses(frame_generator(0, n, "cpu"), H, M, "cpu")
+            gt_norm = torch.linalg.vector_norm(inputs.gt_pos[n] - kf_gt)
+            frame = [inputs.images[n], inputs.imu[n], inputs.imu_dt[n]]
+            st_next, r_g = card._step(st, *frame, gt_norm, None, noise.to(DEV), None)
+            args, kw, s_g = solves[-1]
+            _, r_c = cpu._step(_to_device(st, "cpu"), *[x.cpu() for x in frame], gt_norm.cpu(),
+                               None, noise, None)
+            s_c = solves[-1][2]
+            s_x = ransac_essential(*[x.cpu() for x in args],
+                                   **{k: v.cpu() if torch.is_tensor(v) else v
+                                      for k, v in kw.items()})
+            err = (_rotation_angle(s_g.R_ji, s_x.R_ji),
+                   float((s_g.t_dir.cpu() - s_x.t_dir).abs().max()))
+            solve_err = [max(a, b) for a, b in zip(solve_err, err)]
+            if int(s_g.num_inliers) != int(s_x.num_inliers) or err[0] > 1e-4 or err[1] > 1e-3:
+                _fail(f"cli kitti: frame {n}: the card's essential solve differs from the "
+                      f"CPU's on the card's own rays")
+            kf_eq &= bool(r_g.is_keyframe) == bool(r_c.is_keyframe)
+            if float((s_g.t_dir.cpu() - s_c.t_dir).abs().max()) < 1e-3:
+                dp_agree = max(dp_agree, float((r_g.p_wc.cpu() - r_c.p_wc).abs().max()))
+            else:
+                ambiguous.append(n)
+            kf_gt = torch.where(r_g.is_keyframe, inputs.gt_pos[n], kf_gt)
+            st = st_next
+    finally:
+        tengine.ransac_essential = ransac_essential
+    print(f"cli kitti: card vs CPU over {N_SHORT} frames, each from the card's state with "
+          f"the same draws: keyframes equal {kf_eq}; the card's essential solve against the "
+          f"CPU's on the card's rays: inliers equal, max rotation {solve_err[0]:.2e} rad, "
+          f"max |d t_dir| {solve_err[1]:.2e}; where the devices' solves agree max |dp_wc| "
+          f"{dp_agree:.3e} m; frames with another near-equal-support solve {ambiguous}",
+          flush=True)
+    if not kf_eq or not dp_agree <= 1e-3 or len(ambiguous) > 2:
+        _fail("cli kitti: the card's run disagrees with the CPU's")
+    fw = ds.frame_window(2)
+    _pipelined_syncs("kitti", card, st, fw.image, fw.imu, fw.imu_dt, fw.gt_pos)
+
+
+def cli_phase(seq) -> None:
+    """The port's CLI (vislam_tpu_torch/cli.py) on the card: a. the
+    synthetic host loop against the default path's sequence loop; b. a
+    distorted EuRoC fixture, host loop and --scan; c. SLAM mode through the
+    CLI; d. a KITTI fixture (vision-only rotation) against the CPU; e.
+    checkpoint and resume; f. the CLI as a subprocess. Each check fatal."""
+    import tempfile
+
+    from vislam_tpu_torch import cli
+    from vislam_tpu_torch.calib import compute_undistort_maps, remap_bilinear
+    from vislam_tpu_torch.data.png import read_png_grey
+    from vislam_tpu_torch.engine import VIOEngine, make_sequence_inputs, run_sequence_scan
+    from vislam_tpu_torch.utils.config import SystemConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        # a. The synthetic host loop (CLI) and the sequence loop on one sequence.
+        n = CLI_FRAMES - 1
+        eng = VIOEngine(seq["calib"], SystemConfig(), device=DEV)
+
+        def init(e):
+            return e.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0],
+                                v_w0=seq["gt_vel"][0], p_w0=seq["gt_pos"][0])
+
+        inputs = make_sequence_inputs(seq, 1, CLI_FRAMES, device=DEV)
+        run_sequence_scan(eng, init(eng), inputs._replace(
+            images=inputs.images[:3], imu=inputs.imu[:3], imu_dt=inputs.imu_dt[:3],
+            gt_pos=inputs.gt_pos[:3]))
+        scan_fps, scan_res = [], None
+        for _ in range(3):
+            st0 = init(eng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, res = run_sequence_scan(eng, st0, inputs)
+            torch.cuda.synchronize()
+            scan_fps.append(n / (time.perf_counter() - t0))
+            scan_res = scan_res or res
+        loop_fps, drain_ms, reports = [], [], []
+        for k in range(3):
+            reset_launches()
+            rep = _cli(["--synthetic", str(CLI_FRAMES), "--output",
+                        os.path.join(tmp, f"a{k}.csv")], "synthetic")
+            if k == 0:
+                launches = read_launches()
+            loop_fps.append(rep["frames"] / rep["wall"])
+            t = rep["timer"]
+            drain_ms.append(1e3 * t.total["drain"] / t.count["drain"])
+            reports.append(rep)
+        rows = reports[0]["rows"]
+        scan_rows = [dict(frame=j + 1, is_kf=bool(scan_res.is_keyframe[j]),
+                          est_p=scan_res.p_wc[j].cpu().numpy()) for j in range(n)]
+        _rows_equal("synthetic host loop vs run_sequence_scan", rows, scan_rows)
+        # initialize: one extraction (2 response launches); the warm-up step
+        # and the n frames: the default path's launches each.
+        per_frame = {c: (launches[c] - (2 if c == "shi_tomasi" else 0)) / (n + 1)
+                     for c in PATHS["default"].per_frame}
+        print(f"cli synthetic: {n} frames, host loop (step_pipelined, bursts of "
+              f"{cli.PIPE_BURST}) "
+              f"{[round(f, 2) for f in loop_fps]} frames/s, median "
+              f"{float(np.median(loop_fps)):.2f}; run_sequence_scan "
+              f"{[round(f, 2) for f in scan_fps]}, median {float(np.median(scan_fps)):.2f}; "
+              f"drain {float(np.median(drain_ms)):.3f} ms per burst (median of the runs' means); "
+              f"ATE {reports[0]['ate']:.4f} m; launches per frame {per_frame}", flush=True)
+        if per_frame != PATHS["default"].per_frame:
+            _fail(f"cli synthetic: launches per frame {per_frame}, the default path's are "
+                  f"{PATHS['default'].per_frame}")
+        if not reports[0]["ate"] < 0.5:
+            _fail(f"cli synthetic: ATE {reports[0]['ate']} >= 0.5 m")
+        imu = inputs.imu[0].cpu().numpy()
+        dt = inputs.imu_dt[0].cpu().numpy()
+        _pipelined_syncs("synthetic", eng, init(eng), seq["images"][1], imu, dt,
+                         seq["gt_pos"][1].astype(np.float32))
+
+        # b. A distorted EuRoC fixture: host loop, the remap, --scan.
+        t0 = time.perf_counter()
+        path, xml, calib = _distorted_euroc_fixture(tmp, CLI_FRAMES)
+        print(f"cli euroc: fixture of {CLI_FRAMES} frames with distortion written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rep = _cli(["--dataset", path, "--calibration", xml, "--output",
+                    os.path.join(tmp, "b.csv")], "euroc")
+        scan = _cli(["--dataset", path, "--calibration", xml, "--scan", "--output",
+                     os.path.join(tmp, "bs.csv")], "euroc --scan")
+        maps, _ = compute_undistort_maps(calib)
+        cam = os.path.join(path, "mav0", "cam0", "data")
+        img = read_png_grey(os.path.join(cam, sorted(os.listdir(cam))[5]))
+        on_card = remap_bilinear(torch.from_numpy(img).to(DEV),
+                                 torch.from_numpy(maps).to(DEV)).cpu()
+        remap_err = (on_card - remap_bilinear(torch.from_numpy(img),
+                                              torch.from_numpy(maps))).abs().max().item()
+        t = rep["timer"]
+        print(f"cli euroc: {rep['frames']} frames at {rep['frames'] / rep['wall']:.2f} frames/s "
+              f"(host loop); ATE {rep['ate']:.4f} m; undistort remap card vs CPU max abs err "
+              f"{remap_err:.3e} grey levels; frame read (PNG decode + IMU/GT, prefetch thread) "
+              f"{1e3 * rep['read_s'] / rep['frames_read']:.3f} ms per frame; undistort "
+              f"{t.mean_ms('undistort'):.3f} ms, drain {t.mean_ms('drain'):.3f} ms per burst; "
+              f"--scan {scan['frames']} frames in {scan['wall']:.3f} s", flush=True)
+        if not remap_err <= 1e-3:
+            _fail(f"cli euroc: remap card vs CPU {remap_err}")
+        if rep["ate"] is None or not rep["ate"] < 0.5:
+            _fail(f"cli euroc: ATE {rep['ate']}")
+        _rows_equal("euroc host loop vs --scan", rep["rows"], scan["rows"])
+
+        # c. SLAM mode through the CLI (--imu-scale: the window VI-BA).
+        reset_launches()
+        rep = _cli(["--dataset", path, "--calibration", xml, "--imu-scale", "--end",
+                    str(2 + CLI_SLAM_FRAMES), "--output", os.path.join(tmp, "c.csv")],
+                   "euroc --imu-scale")
+        launches = read_launches()
+        print(f"cli slam: {rep['frames']} frames (--imu-scale, GT-free, window VI-BA) at "
+              f"{rep['frames'] / rep['wall']:.2f} frames/s; ATE {rep['ate']:.4f} m; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        if rep["frames"] != CLI_SLAM_FRAMES or \
+                launches["match_top2_batched"] != CLI_SLAM_FRAMES + 1:
+            _fail(f"cli slam: {rep['frames']} frames, {launches['match_top2_batched']} window "
+                  f"matches (expected {CLI_SLAM_FRAMES} and one per step, warm-up included)")
+
+        # d. A KITTI fixture: vision-only rotation.
+        kpath, kxml = _kitti_fixture(tmp, CLI_KITTI_FRAMES)
+        rep = _cli(["--dataset", kpath, "--format", "kitti", "--calibration", kxml, "--output",
+                    os.path.join(tmp, "d.csv")], "kitti")
+        print(f"cli kitti: {rep['frames']} frames (vision-only rotation) at "
+              f"{rep['frames'] / rep['wall']:.2f} frames/s; ATE {rep['ate']:.4f} m "
+              f"(not bounded: the KITTI mode has no IMU)", flush=True)
+        _kitti_card_vs_cpu(kpath, kxml)
+
+        # e. Checkpoint at frame 30, resume to 60: the uninterrupted run's tail.
+        ck = os.path.join(tmp, "state.npz")
+        _cli(["--synthetic", str(n // 2 + 1), "--checkpoint", ck, "--output",
+              os.path.join(tmp, "e1.csv")], "checkpoint")
+        rep = _cli(["--synthetic", str(CLI_FRAMES), "--checkpoint", ck, "--resume", "--output",
+                    os.path.join(tmp, "e2.csv")], "resume")
+        _rows_equal("resume vs uninterrupted", rep["rows"], rows[-len(rep["rows"]):])
+        if len(rep["rows"]) != n // 2:
+            _fail(f"cli resume: {len(rep['rows'])} rows, expected {n // 2}")
+
+        # f. The entry point alone, as a user starts it.
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "vislam_tpu_torch.cli", "--synthetic", "20",
+                               "--output", os.path.join(tmp, "f.csv")],
+                              capture_output=True, text=True, timeout=300)
+        ate = re.search(r"ATE RMSE \(unaligned\): ([0-9.]+) m", proc.stdout)
+        print(f"cli subprocess: python -m vislam_tpu_torch.cli --synthetic 20: exit "
+              f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+              f"{ate.group(0) if ate else 'no ATE line'}", flush=True)
+        if proc.returncode != 0 or ate is None:
+            _fail(f"cli subprocess failed: {proc.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _phase(name, t0) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1484,6 +1861,9 @@ def main() -> None:
         t0 = time.perf_counter()
         launches[name], batched[name] = batch_path_phase(name, seqs)
         _phase(f"path {name}", t0)
+    t0 = time.perf_counter()
+    cli_phase(seq)
+    _phase("cli", t0)
     # The order of what follows: see the module's docstring.
     t0 = time.perf_counter()
     for name, ctx in profiled.items():

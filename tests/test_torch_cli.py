@@ -1,0 +1,237 @@
+"""The port's CLI, `python -m vislam_tpu_torch.cli`, in subprocesses on the
+CPU (--cpu), on the reference CLI tests' fixtures: a synthetic sequence
+(against the JAX CLI on the same sequence), an EuRoC fixture with an
+OpenCV-XML calibration (host loop and --scan), a distorted one, a KITTI
+one, checkpoint and resume; and the flags it refuses.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from vislam_tpu.data import SyntheticConfig, make_synthetic_sequence, write_euroc_fixture
+from vislam_tpu_torch import cli
+from vislam_tpu_torch.eval import read_trajectory_csv
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(module, args, cpu=True, timeout=300):
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2",
+           "PYTHONPATH": REPO}
+    r = subprocess.run([sys.executable, "-m", module, *(["--cpu"] if cpu else []), *args],
+                       capture_output=True, text=True, cwd=REPO, env=env, timeout=timeout)
+    return r
+
+
+def _port(args, **kw):
+    r = _run("vislam_tpu_torch.cli", args, **kw)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return r
+
+
+def _ate(stdout):
+    return float(re.search(r"ATE RMSE \(unaligned\): ([0-9.]+) m", stdout).group(1))
+
+
+def _xml(path, calib, dist=None):
+    """An OpenCV-XML calibration written by cv2, as the reference's tests write it."""
+    import cv2
+
+    fs = cv2.FileStorage(path, cv2.FILE_STORAGE_WRITE)
+    fs.write("camera_matrix", calib.K)
+    fs.write("distortion_coefficients", np.asarray(calib.dist if dist is None else dist))
+    fs.write("image_width", calib.width)
+    fs.write("image_height", calib.height)
+    fs.write("camera_rate", 20.0)
+    fs.write("imu_rate", 200.0)
+    fs.release()
+    return path
+
+
+@pytest.fixture(scope="module")
+def synthetic14(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("syn") / "t.csv")
+    return _port(["--synthetic", "14", "--output", out]), read_trajectory_csv(out)
+
+
+def test_cli_synthetic_against_reference_cli(tmp_path, synthetic14):
+    """13 frames, finite; ATE < 0.5 m and within 0.05 m of the JAX CLI's on
+    the same sequence (the RANSAC draws differ: JAX keys against torch
+    generators)."""
+    r, data = synthetic14
+    assert len(data["frame"]) == 13 and np.isfinite(data["est_p"]).all()
+    assert "processed 13 frames" in r.stdout and "drain" in r.stdout
+    j = _run("vislam_tpu.cli", ["--synthetic", "14", "--output", str(tmp_path / "j.csv")])
+    assert j.returncode == 0, j.stderr[-3000:]
+    a_t, a_j = _ate(r.stdout), _ate(j.stdout)
+    assert a_t < 0.5 and abs(a_t - a_j) < 0.05, (a_t, a_j)
+
+
+def test_cli_resume_equals_uninterrupted_run(tmp_path, synthetic14):
+    """Checkpointed at frame 7 (and its keyframes), resumed to 14: the tail
+    equals the uninterrupted run's rows (positions within 1e-5 m, keyframes
+    equal; the same draws from the restored counter)."""
+    ck = str(tmp_path / "state.npz")
+    _port(["--synthetic", "8", "--output", str(tmp_path / "a.csv"), "--checkpoint", ck])
+    assert os.path.exists(ck)
+    r = _port(["--synthetic", "14", "--output", str(tmp_path / "b.csv"), "--checkpoint", ck,
+               "--resume"])
+    assert "resumed from" in r.stdout
+    full, part = synthetic14[1], read_trajectory_csv(str(tmp_path / "b.csv"))
+    n = len(part["frame"])
+    assert n == 14 - 8
+    np.testing.assert_array_equal(part["frame"], full["frame"][-n:])
+    np.testing.assert_array_equal(part["is_kf"], full["is_kf"][-n:])
+    np.testing.assert_allclose(part["est_p"], full["est_p"][-n:], atol=1e-5, rtol=0)
+
+
+def test_cli_fetch_every_frame_gives_the_same_rows(tmp_path, monkeypatch, synthetic14):
+    """The host loop fetching every frame (PIPE_BURST = 1) gives the rows of
+    the default bursts: the burst only sets when the host reads results
+    (positions within 1e-5 m, keyframes equal)."""
+    monkeypatch.setattr(cli, "PIPE_BURST", 1)
+    out = str(tmp_path / "b1.csv")
+    assert cli.main(["--cpu", "--synthetic", "14", "--output", out]) == 0
+    a, b = read_trajectory_csv(out), synthetic14[1]
+    np.testing.assert_array_equal(a["frame"], b["frame"])
+    np.testing.assert_array_equal(a["is_kf"], b["is_kf"])
+    np.testing.assert_allclose(a["est_p"], b["est_p"], atol=1e-5, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def euroc(tmp_path_factory):
+    from vislam_tpu.data.synthetic import synthetic_calib
+
+    root = tmp_path_factory.mktemp("euroc")
+    write_euroc_fixture(str(root / "seq"), SyntheticConfig(n_frames=18, n_landmarks=150,
+                                                           seed=5), static_prefix_s=1.0)
+    return str(root / "seq"), _xml(str(root / "calib.xml"), synthetic_calib())
+
+
+def test_cli_euroc_fixture_host_loop_and_scan(tmp_path, euroc):
+    """The EuRoC layout with an XML calibration: the host loop reads the
+    frames through the prefetch thread and the scan stages them; both give
+    the same rows (the same step on the same inputs: positions within
+    1e-5 m, keyframes equal), finite, with GT."""
+    ds, xml = euroc
+    out_h, out_s = str(tmp_path / "h.csv"), str(tmp_path / "s.csv")
+    h = _port(["--dataset", ds, "--calibration", xml, "--output", out_h])
+    _port(["--dataset", ds, "--calibration", xml, "--output", out_s, "--scan"])
+    assert "frame read" in h.stdout and _ate(h.stdout) < 0.5
+    a, b = read_trajectory_csv(out_h), read_trajectory_csv(out_s)
+    assert len(a["frame"]) >= 10 and np.isfinite(a["est_p"]).all()
+    assert np.isfinite(a["gt_p"]).all()
+    np.testing.assert_array_equal(b["frame"], a["frame"])
+    np.testing.assert_array_equal(b["is_kf"], a["is_kf"])
+    np.testing.assert_allclose(b["est_p"], a["est_p"], atol=1e-5, rtol=0)
+
+
+def test_cli_undistorts_distorted_fixture(tmp_path):
+    """tests/test_cli_distorted.py's fixture: radial distortion synthesised
+    on the images, the distortion in the XML; the port remaps every frame
+    and tracks (position error < 0.6 m, that test's bound)."""
+    import cv2
+    import jax.numpy as jnp
+
+    from vislam_tpu.calib.camera_model import remap_bilinear, undistort_normalized
+    from vislam_tpu.data.synthetic import synthetic_calib
+
+    ds = str(tmp_path / "seq")
+    write_euroc_fixture(ds, SyntheticConfig(n_frames=18, n_landmarks=200, seed=33),
+                        static_prefix_s=0.5)
+    clean = synthetic_calib()
+    dist = (-0.15, 0.03, 0.0, 0.0)
+    vv, uu = np.meshgrid(np.arange(clean.height), np.arange(clean.width), indexing="ij")
+    xd = np.stack([(uu - clean.cx) / clean.fx, (vv - clean.cy) / clean.fy], -1)
+    xn = np.asarray(undistort_normalized(jnp.asarray(xd, jnp.float32), dist, iters=10))
+    maps = np.stack([xn[..., 0] * clean.fx + clean.cx, xn[..., 1] * clean.fy + clean.cy],
+                    -1).astype(np.float32)
+    cam = os.path.join(ds, "mav0", "cam0", "data")
+    for name in sorted(os.listdir(cam)):
+        img = cv2.imread(os.path.join(cam, name), cv2.IMREAD_GRAYSCALE)
+        warped = np.asarray(remap_bilinear(jnp.asarray(img, jnp.float32), jnp.asarray(maps)))
+        cv2.imwrite(os.path.join(cam, name), np.clip(warped, 0, 255).astype(np.uint8))
+    xml = _xml(str(tmp_path / "calib.xml"), clean, dist)
+    out = str(tmp_path / "t.csv")
+    r = _port(["--dataset", ds, "--calibration", xml, "--output", out])
+    assert "undistort" in r.stdout
+    data = read_trajectory_csv(out)
+    assert np.isfinite(data["est_p"]).all()
+    assert np.linalg.norm(data["est_p"] - data["gt_p"], axis=-1).max() < 0.6
+
+
+def test_cli_kitti_fixture(tmp_path):
+    """tests/test_cli_kitti.py's fixture (KITTI layout, no IMU, vision-only
+    rotation by force): 14 rows, finite estimates and GT."""
+    import cv2
+    from scipy.spatial.transform import Rotation as Rsp
+
+    from vislam_tpu.data.synthetic import synthetic_calib
+
+    seq = make_synthetic_sequence(SyntheticConfig(n_frames=16, n_landmarks=200, seed=15))
+    root = tmp_path / "kitti"
+    img_dir = root / "sequences" / "00" / "image_0"
+    os.makedirs(img_dir)
+    os.makedirs(root / "poses")
+    for i, img in enumerate(seq["images"]):
+        cv2.imwrite(str(img_dir / f"{i:06d}.png"), img)
+    np.savetxt(str(root / "sequences" / "00" / "times.txt"), np.arange(16) * 0.05, fmt="%.6f")
+    with open(root / "poses" / "00.txt", "w") as f:
+        for q, p in zip(seq["gt_quat"], seq["gt_pos"]):
+            R = Rsp.from_quat(np.roll(q, -1)).as_matrix()
+            f.write(" ".join(f"{x:.9f}" for x in np.hstack([R, p[:, None]]).reshape(-1)) + "\n")
+    xml = _xml(str(tmp_path / "calib.xml"), synthetic_calib())
+    out = str(tmp_path / "t.csv")
+    _port(["--dataset", str(root), "--format", "kitti", "--sequence", "00",
+           "--calibration", xml, "--output", out])
+    data = read_trajectory_csv(out)
+    assert len(data["frame"]) == 14
+    assert np.isfinite(data["est_p"]).all() and np.isfinite(data["gt_p"]).all()
+
+
+REFUSED = [
+    (["--reloc"], "queue 1 item 5"),
+    (["--loop-correct"], "queue 1 item 5"),
+    (["--loop-sim3"], "queue 1 item 5"),
+    (["--save-map", "m.npz"], "queue 1 item 5"),
+    (["--load-map", "m.npz"], "queue 1 item 5"),
+    (["--dist-ba", "8"], "queue 1 item 6"),
+    (["--photometric"], "queue 1 item 4"),
+    (["--oriented"], "queue 1 item 4"),
+    (["--gauge", "marg"], "queue 1 item 7"),
+    (["--gauge", "oldest2"], "queue 1 item 7"),
+    (["--plot", "p"], "Not to port"),
+    (["--live-viz", "p"], "Not to port"),
+]
+
+
+@pytest.mark.parametrize("flags,item", REFUSED, ids=[" ".join(f) for f, _ in REFUSED])
+def test_cli_refuses_flags_of_modules_not_ported(capsys, flags, item):
+    """Status 2 before any work, naming the flag and its ROADMAP item."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--cpu", "--synthetic", "5", *flags])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert flags[0] in err and "ROADMAP.md" in err and item in err
+
+
+def test_cli_argument_errors_and_no_card(tmp_path):
+    """--resume without --checkpoint and a run without a sequence are
+    usage errors; without --cpu the CLI asks for the card and, where there
+    is none, exits non-zero with the engine's message (nothing falls back)."""
+    for args in (["--cpu", "--synthetic", "5", "--resume"], ["--cpu"]):
+        with pytest.raises(SystemExit) as e:
+            cli.main(args)
+        assert e.value.code == 2
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the run would use it")
+    r = _run("vislam_tpu_torch.cli", ["--synthetic", "5", "--output", str(tmp_path / "t.csv")],
+             cpu=False)
+    assert r.returncode == 1 and "no CUDA device is available" in r.stderr
+    assert not os.path.exists(tmp_path / "t.csv")

@@ -82,14 +82,15 @@ def test_metrics_match_reference(rng):
 
 def test_port_imports_neither_jax_nor_reference(tmp_path):
     """Import every module of the port in a fresh interpreter in which
-    `jax` and `vislam_tpu` cannot be imported at all."""
+    `jax`, `vislam_tpu`, `cv2` and `ml_dtypes` cannot be imported at all
+    (the card's machine has none of them)."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
 
         class Block:
             def find_spec(self, name, path=None, target=None):
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "vislam_tpu"):
+                if top in ("jax", "jaxlib", "vislam_tpu", "cv2", "ml_dtypes"):
                     raise ImportError("blocked: " + name)
                 return None
 
@@ -100,7 +101,7 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
         for n in names:
             importlib.import_module(n)
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "vislam_tpu")]
+               if m.split(".")[0] in ("jax", "jaxlib", "vislam_tpu", "cv2", "ml_dtypes")]
         assert not bad, bad
         assert len(names) >= 20, names
         print("OK", len(names))

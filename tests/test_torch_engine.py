@@ -230,7 +230,6 @@ def test_run_sequence_scan_equals_step_loop(seq):
 
 
 UNSUPPORTED = [
-    ("engine", "vision_rotation", True),
     ("engine", "photometric_refine", True),
     ("backend", "online_gauge", "marg"),
     ("backend", "online_gauge", "oldest2"),

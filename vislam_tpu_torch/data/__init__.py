@@ -1,7 +1,13 @@
-"""Synthetic sequences (port of vislam_tpu.data.synthetic)."""
+"""Dataset readers, the PNG codec, the prefetching loader and synthetic
+sequences (port of vislam_tpu.data)."""
 
+from vislam_tpu_torch.data.euroc import EurocDataset, FrameWindow
+from vislam_tpu_torch.data.kitti import KittiDataset
+from vislam_tpu_torch.data.loader import PrefetchLoader
 from vislam_tpu_torch.data.synthetic import (
     SyntheticConfig,
     make_synthetic_sequence,
     synthetic_calib,
+    write_euroc_fixture,
 )
+from vislam_tpu_torch.data.tum import TumDataset

@@ -1,5 +1,6 @@
 """Synthetic visual-inertial scenes with exact ground truth (port of
-`vislam_tpu/data/synthetic.py`; host-side numpy only).
+`vislam_tpu/data/synthetic.py`; host-side numpy only), and the EuRoC
+directory fixture written from one (`write_euroc_fixture`).
 
 A smooth analytic camera trajectory over a textured 3D landmark field,
 rendered to images, with IMU measurements derived from the same trajectory
@@ -11,12 +12,14 @@ reference generator's (a test holds it so).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional
 
 import numpy as np
 from scipy.spatial.transform import Rotation as _Rot
 
 from vislam_tpu_torch.calib.camera_model import CameraCalib
+from vislam_tpu_torch.data.png import write_png
 
 
 def synthetic_calib(width: int = 752, height: int = 480) -> CameraCalib:
@@ -184,3 +187,57 @@ def make_synthetic_sequence(
         "landmarks": lm,
         "calib": calib,
     }
+
+
+def write_euroc_fixture(
+    path: str,
+    cfg: SyntheticConfig = SyntheticConfig(n_frames=20, n_landmarks=150),
+    calib: Optional[CameraCalib] = None,
+    static_prefix_s: float = 0.0,
+) -> Dict[str, np.ndarray]:
+    """Write a synthetic sequence in the EuRoC mav0/ directory layout:
+    cam0/data/<t_ns>.png, imu0/data.csv and state_groundtruth_estimate0/
+    data.csv with the EuRoC column schema (the reference's fixture, the
+    same CSV text; the PNGs through `data/png.py`).
+
+    static_prefix_s prepends stationary IMU samples (bias calibration).
+    """
+    seq = make_synthetic_sequence(cfg, calib)
+    root = os.path.join(path, "mav0")
+    cam_dir = os.path.join(root, "cam0", "data")
+    imu_dir = os.path.join(root, "imu0")
+    gt_dir = os.path.join(root, "state_groundtruth_estimate0")
+    for d in (cam_dir, imu_dir, gt_dir):
+        os.makedirs(d, exist_ok=True)
+
+    for img, t in zip(seq["images"], seq["t_cam_ns"]):
+        write_png(os.path.join(cam_dir, f"{int(t)}.png"), img)
+
+    dt_imu_ns = int(1e9 / (seq["calib"].rate_imu_hz or 200.0))
+    with open(os.path.join(imu_dir, "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_RS_S_x,w_RS_S_y,w_RS_S_z,a_RS_S_x,a_RS_S_y,a_RS_S_z\n")
+        if static_prefix_s > 0:
+            n_static = int(static_prefix_s * (seq["calib"].rate_imu_hz or 200.0))
+            t_start = int(seq["imu_t_ns"][0]) - n_static * dt_imu_ns
+            # A static, biased sensor reads its bias (gyro) and bias plus
+            # the gravity reaction (accel).
+            bg, ba = cfg.gyro_bias, cfg.accel_bias
+            g = cfg.gravity
+            for k in range(n_static):
+                f.write(
+                    f"{t_start + k * dt_imu_ns},{bg[0]},{bg[1]},{bg[2]},"
+                    f"{ba[0]},{ba[1]},{ba[2] + g}\n"
+                )
+        for t, w, a in zip(seq["imu_t_ns"], seq["imu_gyro"], seq["imu_accel"]):
+            f.write(f"{int(t)},{w[0]},{w[1]},{w[2]},{a[0]},{a[1]},{a[2]}\n")
+
+    with open(os.path.join(gt_dir, "data.csv"), "w") as f:
+        f.write("#timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z,v_x,v_y,v_z,"
+                "b_w_x,b_w_y,b_w_z,b_a_x,b_a_y,b_a_z\n")
+        for t, p, q, v in zip(seq["t_cam_ns"], seq["gt_pos"], seq["gt_quat"], seq["gt_vel"]):
+            bg, ba = cfg.gyro_bias, cfg.accel_bias
+            f.write(
+                f"{int(t)},{p[0]},{p[1]},{p[2]},{q[0]},{q[1]},{q[2]},{q[3]},"
+                f"{v[0]},{v[1]},{v[2]},{bg[0]},{bg[1]},{bg[2]},{ba[0]},{ba[1]},{ba[2]}\n"
+            )
+    return seq

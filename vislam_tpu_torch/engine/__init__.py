@@ -8,7 +8,12 @@ from vislam_tpu_torch.engine.state import (
     stack_states,
     unstack_states,
 )
-from vislam_tpu_torch.engine.engine import FrameResult, VIOEngine
+from vislam_tpu_torch.engine.engine import (
+    FrameResult,
+    HostFrameResult,
+    VIOEngine,
+    unpack_host_result,
+)
 from vislam_tpu_torch.engine.batch import (
     SequenceInputs,
     make_batch_inputs,
@@ -16,4 +21,5 @@ from vislam_tpu_torch.engine.batch import (
     run_batch_scan,
     run_sequence_scan,
     sequence_seed,
+    stage_dataset,
 )

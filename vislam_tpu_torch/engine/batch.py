@@ -1,6 +1,7 @@
 """Offline sequence processing (port of `vislam_tpu/engine/batch.py`): the
-step looped over a sequence staged on the device, and over B sequences
-stepped together.
+step looped over a sequence staged on the device (a synthetic sequence, or a
+dataset's frames through `stage_dataset`), and over B sequences stepped
+together.
 
 The reference runs the frame loop as one lax.scan; here it is a Python loop
 over frames whose inputs already live on the device, with the GT-scale
@@ -69,6 +70,41 @@ def make_sequence_inputs(seq: dict, start: int = 1, end: Optional[int] = None,
         imu_dt=dev(dt),
         gt_pos=dev(seq["gt_pos"][start:end]),
         use_gt_scale=bool(use_gt_scale),
+    )
+
+
+def stage_dataset(dataset, start: int, end: int, imu_window: int = 16,
+                  use_gt_scale: bool = True, undistort=None, *,
+                  device="cuda") -> SequenceInputs:
+    """Stage a dataset reader's frames [start, end) on `device` (port of
+    the reference's `stage_dataset`): any reader with `frame_window(j)`
+    (EuRoC, KITTI, TUM). Each image goes up as uint8 and is cast there;
+    `undistort` (uint8 image -> float32 image on the device) remaps it.
+    GT scale needs GT on every frame; else the inputs are GT-free."""
+    device = require_device(device)
+    images, imu, imu_dt, gt_pos = [], [], [], []
+    have_gt = True
+    for j in range(start, end):
+        fw = dataset.frame_window(j)
+        img = torch.as_tensor(fw.image).to(device)
+        images.append(undistort(img) if undistort is not None else img.to(torch.float32))
+        imu.append(fw.imu)
+        imu_dt.append(fw.imu_dt)
+        if fw.gt_pos is None:
+            have_gt = False
+            gt_pos.append(np.zeros(3, np.float32))
+        else:
+            gt_pos.append(np.asarray(fw.gt_pos, np.float32))
+
+    def dev(x):
+        return torch.from_numpy(np.stack(x)).to(device)
+
+    return SequenceInputs(
+        images=torch.stack(images),
+        imu=dev(imu),
+        imu_dt=dev(imu_dt),
+        gt_pos=dev(gt_pos),
+        use_gt_scale=bool(use_gt_scale and have_gt),
     )
 
 
@@ -147,6 +183,9 @@ def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceI
     (noise, noise_rescue)` overrides them (stacked once, before the frames).
     Returns (final state (B, ...), FrameResult (B, N, ...)).
     """
+    if eng.cfg.engine.vision_rotation:
+        raise NotImplementedError("run_batch_scan with engine.vision_rotation is not wired "
+                                  "(ROADMAP.md queue 1, frontend variants)")
     B, N = inputs_batch.images.shape[:2]
     M = states0.kf_feat.uv.shape[-2]
     kf_gt_pos = torch.as_tensor(kf_gt_pos0, dtype=torch.float32).to(eng.device)

@@ -1,6 +1,7 @@
 """The VIO engine: the per-frame step (port of `vislam_tpu/engine/engine.py`:
-GT scale or GT-free IMU scale, open loop or SLAM mode, any frontend but the
-oriented and always-gated ones).
+GT scale or GT-free IMU scale, open loop or SLAM mode, IMU or vision-only
+rotation, any frontend but the oriented and always-gated ones), and the
+host loop's API (`step_pipelined`, `step_host`, the packed result).
 
 One frame: Madgwick attitude + IMU preintegration, feature extraction,
 descriptor match against the keyframe, IMU-rotation-compensated translation
@@ -35,6 +36,7 @@ from vislam_tpu_torch.engine.bootstrap import vi_align_window
 from vislam_tpu_torch.engine.refine import check_gauge, refine_window
 from vislam_tpu_torch.engine.state import EngineState, init_state, tree_where
 from vislam_tpu_torch.frontend.descriptor import DescriptorGeometry
+from vislam_tpu_torch.frontend.essential import gumbel_hypotheses, ransac_essential
 from vislam_tpu_torch.frontend.features import Features, extract_features
 from vislam_tpu_torch.frontend.match import match_descriptors
 from vislam_tpu_torch.frontend.pose import (
@@ -68,6 +70,51 @@ class FrameResult(NamedTuple):
     t_pred_cam: torch.Tensor   # (3,) IMU-predicted keyframe->frame translation
 
 
+class HostFrameResult(NamedTuple):
+    """Per-frame outputs on the host, unpacked from the one (37,) float32
+    vector a host-loop step returns (`unpack_host_result`)."""
+
+    p_wc: np.ndarray
+    R_wc: np.ndarray
+    q_wb: np.ndarray
+    v_w: np.ndarray
+    rpy: np.ndarray
+    is_keyframe: bool
+    num_matches: int
+    num_inliers: int
+    disparity: float
+    t_dir_cam: np.ndarray
+    used_fallback: bool
+    t_pred_cam: np.ndarray
+    shadow_p_wc: np.ndarray
+    bootstrap_applies: int
+
+
+def unpack_host_result(f: np.ndarray) -> HostFrameResult:
+    """Decode the packed (37,) result vector (the reference's layout)."""
+    return HostFrameResult(
+        p_wc=f[0:3], R_wc=f[3:12].reshape(3, 3), q_wb=f[12:16],
+        v_w=f[16:19], rpy=f[19:22],
+        is_keyframe=bool(f[22] > 0.5),
+        num_matches=int(f[23]), num_inliers=int(f[24]),
+        disparity=float(f[25]), used_fallback=bool(f[26] > 0.5),
+        t_dir_cam=f[27:30], t_pred_cam=f[30:33],
+        shadow_p_wc=f[33:36], bootstrap_applies=int(f[36]),
+    )
+
+
+def pack_result(state: "EngineState", r: FrameResult) -> torch.Tensor:
+    """A frame's result and the state's shadow position and bootstrap count
+    as one (37,) float32 vector on the step's device."""
+    f = [r.is_keyframe, r.num_matches, r.num_inliers, r.disparity, r.used_fallback]
+    return torch.cat([
+        r.p_wc, r.R_wc.reshape(-1), r.q_wb, r.v_w, lie.quat_to_rpy(r.q_wb),
+        torch.stack([x.to(torch.float32) for x in f]),
+        r.t_dir_cam, r.t_pred_cam, state.shadow_p_wc,
+        state.bootstrap_applies.to(torch.float32).reshape(1),
+    ])
+
+
 def nanmedian(x):
     """Median of the non-NaN entries of a 1-D tensor, NaN if there are none.
 
@@ -99,8 +146,6 @@ def frame_generator(seed: int, idx: int, device) -> torch.Generator:
 def _check_supported(cfg: SystemConfig) -> None:
     fe, be, en = cfg.frontend, cfg.backend, cfg.engine
     unsupported = [
-        (en.vision_rotation, "engine.vision_rotation",
-         "queue 1, frontend variants (essential-matrix rotation)"),
         (en.photometric_refine, "engine.photometric_refine",
          "queue 1, frontend variants (photometric refine)"),
         (fe.oriented, "frontend.oriented", "queue 1, frontend variants (oriented SIFT)"),
@@ -163,20 +208,106 @@ class VIOEngine:
         """Restore the per-step draw counter (= state.frame_idx) on resume."""
         self._step_counter = int(n)
 
+    def _next_generator(self) -> torch.Generator:
+        gen = frame_generator(self.seed, self._step_counter, self.device)
+        self._step_counter += 1
+        return gen
+
+    def _pinned(self, t: torch.Tensor) -> torch.Tensor:
+        """t in page-locked memory when it goes to the card: a copy from
+        pageable memory makes CUDA wait for the stream's queued work
+        first, which stalls the host whenever the device runs behind it.
+        In today's host-bound loop the queue is short and both copies cost
+        about the same (scripts/torch_host_loop.py times the two)."""
+        if self.device.type == "cuda" and t.device.type == "cpu" and not t.is_pinned():
+            return t.pin_memory()
+        return t
+
+    def _upload(self, image, *vectors):
+        """A frame's image (any dtype, cast to float32 on the device) and
+        small float32 vectors (concatenated into one copy, split on the
+        device), each copied from pinned memory without waiting."""
+        img = self._pinned(torch.as_tensor(image)).to(self.device, non_blocking=True)
+        img = img.to(torch.float32)
+        flat = torch.from_numpy(np.concatenate(
+            [np.asarray(v, np.float32).reshape(-1) for v in vectors]))
+        dev = self._pinned(flat).to(self.device, non_blocking=True)
+        out, k = [], 0
+        for v in vectors:
+            shape = np.shape(v)
+            n = int(np.prod(shape))
+            out.append(dev[k:k + n].reshape(shape))
+            k += n
+        return (img, *out)
+
+    def relocalize(self, state: EngineState, image, R_wc, p_wc) -> EngineState:
+        """Re-anchor tracking at a known pose: the image becomes the first
+        keyframe of a fresh window (its old contents disagree with the
+        corrected pose); velocity and biases carry over, each set to 0 where
+        it is not finite (this is also the divergence-recovery path)."""
+        img = self._to_device(image)
+        feat = extract_features(img, self.cfg.frontend, self.geom)
+        R_wc = self._to_device(R_wc)
+        p_wc = self._to_device(p_wc)
+        q_wb = lie.mat_to_quat(R_wc @ self.R_bc.T)
+
+        def finite(x):
+            return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+
+        new = init_state(feat, img, q_wb, finite(state.v_w), p_wc, R_wc,
+                         bias_g=finite(state.bias_g), bias_a=finite(state.bias_a),
+                         window_size=self.cfg.backend.window_size,
+                         desc_dtype=getattr(torch, self.cfg.backend.window_desc_dtype))
+        return new._replace(frame_idx=state.frame_idx.clone(),
+                            kf_count=state.kf_count + 1)
+
+    def step_host_async(self, state: EngineState, image, imu, imu_dt,
+                        gt_t_norm: float = -1.0):
+        """Dispatch one frame without waiting: (new_state, packed), packed
+        the (37,) result vector still on the device (decode it later with
+        `unpack_host_result(packed.cpu().numpy())`). The image may be uint8
+        (cast on the device)."""
+        img, imu_d, dt_d = self._upload(image, imu, imu_dt)
+        s, r = self._step(state, img, imu_d, dt_d, float(gt_t_norm), self._next_generator())
+        return s, pack_result(s, r)
+
+    def step_host(self, state: EngineState, image, imu, imu_dt, gt_t_norm: float = -1.0):
+        """One frame for a host loop: (new_state, HostFrameResult), one
+        device-to-host copy."""
+        s, flat = self.step_host_async(state, image, imu, imu_dt, gt_t_norm)
+        return s, unpack_host_result(flat.cpu().numpy())
+
+    def step_pipelined(self, state: EngineState, kf_gt_pos, image, imu, imu_dt, gt_p,
+                       gt_on: float):
+        """The host loop's step: (new_state, new_kf_gt_pos, packed), with no
+        host feedback between frames. The GT position of the last keyframe
+        rides a device carry (kf_gt_pos, updated where the frame is a
+        keyframe, as `run_sequence_scan` carries it), so GT scale needs no
+        fetch of the keyframe flag; gt_on (a host float) <= 0 selects the
+        IMU scale. Frame j draws from `frame_generator(seed, counter)`, as
+        `step` and `run_sequence_scan` do."""
+        img, imu_d, dt_d, gt_d = self._upload(image, imu, imu_dt, gt_p)
+        kf_gt = self._pinned(torch.as_tensor(kf_gt_pos, dtype=torch.float32)).to(
+            self.device, non_blocking=True)
+        gt_norm = torch.linalg.vector_norm(gt_d - kf_gt) if gt_on > 0.0 else -1.0
+        s, r = self._step(state, img, imu_d, dt_d, gt_norm, self._next_generator())
+        return s, torch.where(r.is_keyframe, gt_d, kf_gt), pack_result(s, r)
+
     def step(self, state: EngineState, image, imu, imu_dt, gt_t_norm: float = -1.0,
              noise=None, noise_rescue=None):
         """Process one frame. gt_t_norm (a host float): the GT distance since
         the last keyframe (GT scale), or < 0 for the IMU (GT-free) scale.
 
         noise / noise_rescue: optional (2, H, M) Gumbel noise for the main
-        and the rescue RANSAC draws; drawn from this frame's generator
-        (`frame_generator(seed, frame index)`) when not given.
+        and the rescue RANSAC draws ((H, 8, M) for the essential-matrix
+        RANSAC of vision-only rotation, which has no rescue); drawn from
+        this frame's generator (`frame_generator(seed, frame index)`) when
+        not given.
         """
         gt_t_norm = float(gt_t_norm)
-        gen = frame_generator(self.seed, self._step_counter, self.device)
-        self._step_counter += 1
         return self._step(state, self._to_device(image), self._to_device(imu),
-                          self._to_device(imu_dt), gt_t_norm, gen, noise, noise_rescue)
+                          self._to_device(imu_dt), gt_t_norm, self._next_generator(),
+                          noise, noise_rescue)
 
     def _step(self, state: EngineState, image, imu, imu_dt, gt_t_norm,
               gen: torch.Generator | None, noise=None, noise_rescue=None):
@@ -240,22 +371,36 @@ class VIOEngine:
 
         # ---------------- two-view relative pose
         H_hyp, M = be.ransac_hyps, uv_i.shape[0]
-        if gen is None and (noise is None or noise_rescue is None):
+        vision = en.vision_rotation
+        if gen is None and (noise is None or (noise_rescue is None and not vision)):
             raise ValueError("the step needs noise and noise_rescue, or a generator")
-        if noise is None:
-            noise = gumbel_noise(gen, H_hyp, M, self.device)
-        if noise_rescue is None:
-            noise_rescue = gumbel_noise(gen, H_hyp, M, self.device)
-        R_ji = R_ji_imu
-        est = ransac_translation(rays_i, rays_j, R_ji, solve_mask, num_hyps=H_hyp,
-                                 thresh=be.ransac_thresh, uv_i=uv_i,
-                                 dispersion_pow=be.ransac_dispersion_pow, noise=noise)
-        t_dir = resolve_direction_sign(rays_i, rays_j, R_ji, est.t_dir, est.inlier_mask)
-        est_inliers = est.num_inliers
-        est_inlier_mask = est.inlier_mask
         used_fallback = torch.zeros((), dtype=torch.bool, device=self.device)
+        if vision:
+            # Vision-only rotation (no IMU): rotation and translation
+            # direction from the essential matrix.
+            if noise is None:
+                noise = gumbel_hypotheses(gen, H_hyp, M, self.device)
+            est_e = ransac_essential(rays_i, rays_j, solve_mask, num_hyps=H_hyp,
+                                     thresh=be.ransac_thresh, uv_i=uv_i,
+                                     dispersion_pow=be.ransac_dispersion_pow, noise=noise)
+            R_ji = est_e.R_ji
+            t_dir = est_e.t_dir
+            est_inliers = est_e.num_inliers
+            est_inlier_mask = est_e.inlier_mask
+        else:
+            if noise is None:
+                noise = gumbel_noise(gen, H_hyp, M, self.device)
+            if noise_rescue is None:
+                noise_rescue = gumbel_noise(gen, H_hyp, M, self.device)
+            R_ji = R_ji_imu
+            est = ransac_translation(rays_i, rays_j, R_ji, solve_mask, num_hyps=H_hyp,
+                                     thresh=be.ransac_thresh, uv_i=uv_i,
+                                     dispersion_pow=be.ransac_dispersion_pow, noise=noise)
+            t_dir = resolve_direction_sign(rays_i, rays_j, R_ji, est.t_dir, est.inlier_mask)
+            est_inliers = est.num_inliers
+            est_inlier_mask = est.inlier_mask
 
-        if fe.guided_fallback_px > 0:
+        if fe.guided_fallback_px > 0 and not vision:
             # Rescue: re-match inside the IMU-rotation-predicted disc and
             # re-solve; taken when the ungated solve is catastrophic (inlier
             # floor, or a direction far from the IMU's while the IMU says
@@ -322,7 +467,7 @@ class VIOEngine:
         # Gyro + accel bias recalibration on quasi-static frames.
         bias_g_new = state.bias_g
         bias_a_new = state.bias_a
-        if en.gyro_recalib:
+        if en.gyro_recalib and not vision:
             w_raw = imu[:, :3]
             a_raw = imu[:, 3:]
             validw = (imu_dt > 0).float()[:, None]
@@ -355,7 +500,7 @@ class VIOEngine:
         # Shadow depth chain: the step length chained through the keyframe's
         # triangulated depths (the GT-free bootstrap's consistently scaled
         # shadow trajectory; maintained in GT-scale mode as well).
-        chain = en.vi_align_bootstrap
+        chain = en.vi_align_bootstrap and not vision
         s_shadow = imu_t_norm
         if chain:
             _, d_i_u, d_j_u, gap_u = triangulate_midpoint(rays_i, rays_j, R_ji, t_dir)
@@ -417,6 +562,12 @@ class VIOEngine:
         dv_max = 20.0 * torch.clamp(T, min=1e-3)
         v_new = state.v_w + torch.clamp(v_new - state.v_w, min=-dv_max, max=dv_max)
         v_new = torch.clamp(v_new, -en.max_velocity, en.max_velocity)
+
+        if vision:
+            # The attitude follows the vision pose (the filter has nothing
+            # to integrate without an IMU).
+            q_wb = torch.where(solved, lie.mat_to_quat(lie.orthonormalize(R_wc_j @ R_bc.T)),
+                               q_wb)
 
         shadow_p_j = state.shadow_kf_p_wc + dp_since_kf
         if chain:
@@ -540,7 +691,7 @@ class VIOEngine:
             # Under VI-BA the promotion-count deadline also engages.
             vi_engaged=vi_engaged,
         )
-        if en.vi_align_bootstrap and gt_free:
+        if en.vi_align_bootstrap and gt_free and not vision:
             # GT-free supervision on promotion (the reference's cond): the
             # alignment runs on every frame and is kept where it applies.
             # Under VI-BA it stops once the BA is engaged.

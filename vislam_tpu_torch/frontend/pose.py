@@ -48,14 +48,19 @@ def rotation_compensated_disparity(uv_i, uv_j, mask, R_ji, fx, fy, cx, cy):
     return torch.sum(d * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
-def gumbel_noise(generator: torch.Generator, num_hyps: int, M: int, device):
-    """(2, H, M) standard Gumbel noise for the two hypothesis draws, from
-    `generator` on `device`. Sampling categorical(logits) H times is
-    argmax(logits + noise) row by row (the Gumbel-max trick, which is how
-    jax.random.categorical samples)."""
+def gumbel(generator: torch.Generator, shape, device):
+    """Standard Gumbel noise of `shape` from `generator` on `device`.
+    Sampling categorical(logits) is argmax(logits + noise) along the last
+    axis (the Gumbel-max trick, which is how jax.random.categorical
+    samples)."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand((2, num_hyps, M), generator=generator, device=device)
+    u = torch.rand(shape, generator=generator, device=device)
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+
+
+def gumbel_noise(generator: torch.Generator, num_hyps: int, M: int, device):
+    """(2, H, M) Gumbel noise for the two draws of the translation RANSAC."""
+    return gumbel(generator, (2, num_hyps, M), device)
 
 
 def smallest_eigvec_sym3(S):

@@ -1,4 +1,4 @@
-"""Quaternion, SO(3) and SE(3) math (port of vislam_tpu.lie)."""
+"""Quaternion, SO(3), SE(3) and roll-pitch-yaw math (port of vislam_tpu.lie)."""
 
 from vislam_tpu_torch.lie.quat import (
     mat_to_quat,
@@ -17,3 +17,11 @@ from vislam_tpu_torch.lie.so3 import (
     so3_vee,
 )
 from vislam_tpu_torch.lie.se3 import se3_exp, se3_log
+from vislam_tpu_torch.lie.euler import (
+    angle_diff,
+    mat_to_rpy,
+    quat_to_rpy,
+    rpy_to_mat,
+    rpy_to_quat,
+    wrap_angle,
+)

@@ -12,9 +12,9 @@ into the port's batch. `ba_from_numpy` does the same for the BA trees
 (BAState, BAProblem, ImuFactors): array fields become tensors, the camera
 intrinsics of a BAProblem stay floats, absent optional fields stay None.
 Dtypes are kept: the window descriptor bank stays bfloat16,
-masks stay bool, counters stay int32. This module imports neither jax nor
-the reference package; numpy's bfloat16 is the `ml_dtypes` one, imported
-only when a bfloat16 array has to be made.
+masks stay bool, counters stay int32. This module imports neither jax, the
+reference package nor ml_dtypes; a bfloat16 array back to numpy needs
+numpy's "bfloat16" dtype, which ml_dtypes registers when jax is loaded.
 """
 
 from __future__ import annotations
@@ -42,9 +42,9 @@ def _tensor(x, device) -> torch.Tensor:
 def _array(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-
-        return t.view(torch.int16).numpy().view(np.uint16).view(ml_dtypes.bfloat16)
+        # numpy knows "bfloat16" once ml_dtypes has registered it (jax does,
+        # in the tests that compare against the reference).
+        return t.view(torch.int16).numpy().view(np.uint16).view(np.dtype("bfloat16"))
     return t.numpy()
 
 
