@@ -93,6 +93,32 @@ Phases, each fatal on failure (exit code != 0, no result line):
           uninterrupted run (within 1e-5 m, keyframes equal);
        f. `python -m vislam_tpu_torch.cli --synthetic 20` as a
           subprocess: exit 0 and an ATE line;
+     Then the map backend (`vislam_tpu_torch/backend/`, phase map), each
+     check fatal:
+       a. EVAL config 4's inputs (seed 21, 86 frames, GT scale, its
+          correct_trajectory settings): the scan, its keyframe archive
+          (keyframes_from_scan: 2 shi_tomasi launches per keyframe), then
+          correct_trajectory in SE(3) and Sim(3) on the card (2 match
+          launches per candidate measured, as the host counts them): a
+          loop spanning >= 10 keyframes, the keyframes' max error falls
+          (printed beside the reference's 0.267 -> 0.146 m), and the CPU's
+          correct_trajectory on the card's archive gives the same loops
+          (inliers within 2) and positions within 1e-3 m;
+       b. the CLI: --synthetic 86 without and with --loop-correct
+          --save-map (frames/s printed, not bounded; the archive copy's ms
+          per keyframe), the "loop closures:" and "map saved:"
+          lines, the map read by numpy with the reference's keys and
+          dtypes, then --load-map --reloc ("loaded map:");
+       c. tests/test_reloc.py's outage (44 frames, vision blanked on 28-35,
+          drift injected at 30): attempt_relocalization at frame 39 on the
+          card succeeds and halves the error; on the CPU, with the same
+          archive and live features, the same keyframe and the pose within
+          1e-3 m; the host syncs of one attempt printed;
+       d. SE(3) and Sim(3) pose graphs at EVAL config 6's size (315 nodes,
+          two laps of a drifted chain, 8 loop edges), 15 iterations on the
+          card and on the CPU: final costs within 1e-4 relative, positions
+          within 1e-2 m (what the float32 cost resolves), rotations and
+          scales within 1e-3, 0 host syncs inside, wall ms printed;
   4. stage times: for each 60-frame path, where a frame's wall time goes
      (each stage alone, synchronised; the GT-free paths add
      vi_align_window, slam refine_window);
@@ -1785,6 +1811,330 @@ def cli_phase(seq) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase map
+
+MAP_FRAMES = 86        # EVAL config 4's sequence (seed 21): the path revisits its start at frame 80
+MAP_OUTAGE = (44, 28, 36, 30)   # tests/test_reloc.py:109: frames, vision blanked [28, 36), drift at 30
+MAP_NODES = 315        # EVAL config 6's keyframes (its 500-frame run)
+MAP_LOOPS = 8
+# EVAL config 4's correct_trajectory settings (scripts/eval_configs.py::run_vio)
+# and its result in the reference (EVAL.md: max keyframe error before -> after).
+EVAL4_KW = dict(min_separation=10, sim_thresh=0.80, min_inliers=25)
+EVAL4_ERR = (0.267, 0.146)
+
+
+def _loops_agree(a, b) -> bool:
+    """Equal loop pairs, inliers within 2 (a near-tied ratio test may flip
+    between the kernel and the twin)."""
+    return [x[:2] for x in a] == [y[:2] for y in b] and \
+        all(abs(x[2] - y[2]) <= 2 for x, y in zip(a, b))
+
+
+def _nonzero(launches) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def _map_loop_check() -> None:
+    """a. EVAL config 4's inputs: the scan, its keyframe archive
+    (keyframes_from_scan), correct_trajectory in SE(3) and Sim(3) on the card
+    against the CPU on the same archive, each kernel's launches as the host
+    counts them."""
+    from vislam_tpu_torch.backend.loop import detect_loop_candidates, global_descriptors
+    from vislam_tpu_torch.backend.trajectory_opt import (
+        correct_trajectory, keyframes_from_scan, to_device,
+    )
+    from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu_torch.engine import VIOEngine, make_sequence_inputs, run_sequence_scan
+    from vislam_tpu_torch.utils.config import SystemConfig
+
+    seq = make_synthetic_sequence(SyntheticConfig(n_frames=MAP_FRAMES, n_landmarks=300,
+                                                  seed=21))
+    c = seq["calib"]
+    eng = VIOEngine(c, SystemConfig(), device=DEV)
+    state0 = eng.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0], v_w0=seq["gt_vel"][0],
+                            p_w0=seq["gt_pos"][0])
+    inputs = make_sequence_inputs(seq, 1, MAP_FRAMES, device=DEV)
+    _, res = run_sequence_scan(eng, state0, inputs)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    archive = keyframes_from_scan(inputs.images, res, eng.cfg.frontend, frame_offset=1,
+                                  geom=eng.geom)
+    arch_ms = 1e3 * (time.perf_counter() - t0) / max(len(archive), 1)
+    n_kf, launches = len(archive), read_launches()
+    print(f"map loop: {MAP_FRAMES - 1} frames scanned, {n_kf} keyframes archived by "
+          f"keyframes_from_scan at {arch_ms:.3f} ms per keyframe (extraction + one copy); "
+          f"launches {_nonzero(launches)} (2 shi_tomasi per keyframe expected)", flush=True)
+    if launches != {**{k: 0 for k in launches}, "shi_tomasi": 2 * n_kf} or n_kf <= 10:
+        _fail(f"map loop: {n_kf} keyframes, launches {_nonzero(launches)}")
+
+    desc, mask = to_device(DEV, np.stack([k.desc for k in archive]),
+                           np.stack([k.kp_mask for k in archive]))
+    cands = detect_loop_candidates(global_descriptors(desc, mask),
+                                   torch.ones(n_kf, dtype=torch.bool, device=DEV),
+                                   min_separation=EVAL4_KW["min_separation"],
+                                   sim_thresh=EVAL4_KW["sim_thresh"])
+    measured = sum(1 for a, m in zip(cands.idx_a.tolist(), cands.mask.tolist())
+                   if m and a + 1 < n_kf)
+    kf_gt = np.array([seq["gt_pos"][k.frame_index] for k in archive])
+    before = float(np.linalg.norm(np.stack([k.p_wc for k in archive]) - kf_gt, axis=-1).max())
+    for graph in ("se3", "sim3"):
+        kw = dict(EVAL4_KW, use_sim3=graph == "sim3")
+        reset_launches()
+        p, _, info = correct_trajectory(archive, c.fx, c.fy, c.cx, c.cy, **kw, device=DEV)
+        launches = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        correct_trajectory(archive, c.fx, c.fy, c.cx, c.cy, **kw, device=DEV)
+        ms = 1e3 * (time.perf_counter() - t0)
+        p_cpu, _, info_cpu = correct_trajectory(archive, c.fx, c.fy, c.cx, c.cy, **kw,
+                                                device="cpu")
+        after = float(np.linalg.norm(p - kf_gt, axis=-1).max())
+        dp = float(np.abs(p - p_cpu).max())
+        print(f"map loop {graph}: loops {info['loops']} (CPU {info_cpu['loops']}); max keyframe "
+              f"error {before:.3f} -> {after:.3f} m (the reference, EVAL.md config 4: "
+              f"{EVAL4_ERR[0]} -> {EVAL4_ERR[1]} m); card vs CPU max |dp| {dp:.3e} m; "
+              f"correct_trajectory {ms:.1f} ms on the card ({n_kf} keyframes, {measured} "
+              f"candidates measured); launches {_nonzero(launches)}", flush=True)
+        if launches != {**{k: 0 for k in launches}, "match_top2": 2 * measured,
+                        "match_top2_per_pair": 2 * measured}:
+            _fail(f"map loop {graph}: launches {_nonzero(launches)}, expected match_top2 "
+                  f"{2 * measured} (2 per candidate measured)")
+        if not any(b - a >= 10 for a, b, _ in info["loops"]) or not after < before:
+            _fail(f"map loop {graph}: no loop spanning 10 keyframes, or the error did not fall")
+        if not _loops_agree(info["loops"], info_cpu["loops"]) or not dp <= 1e-3:
+            _fail(f"map loop {graph}: the card's correction disagrees with the CPU's")
+
+
+def _main_printing(argv, what):
+    """_cli(argv) with what it printed kept (and printed); returns (report, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep = _cli(argv, what)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return rep, text
+
+
+def _map_cli_check(tmp) -> None:
+    """b. The CLI with --loop-correct --save-map, then --load-map --reloc; the
+    host loop's frames/s beside the same run without map flags (one each:
+    printed, not bounded); the map read by plain numpy."""
+    mp = os.path.join(tmp, "map.npz")
+    fps = {"plain": [], "map": []}
+    for k, kind in enumerate(("plain", "map")):
+        extra = ["--loop-correct", "--save-map", mp] if kind == "map" else []
+        reset_launches()
+        rep, text = _main_printing(["--synthetic", str(MAP_FRAMES), *extra, "--output",
+                                    os.path.join(tmp, f"m{k}.csv")], f"map {kind}")
+        fps[kind].append(rep["frames"] / rep["wall"])
+        if kind == "map":
+            launches, map_rep, map_text = read_launches(), rep, text
+    for line in ("loop closures: ", "map saved: "):
+        if line not in map_text:
+            _fail(f"map cli: no '{line}' line")
+    t = map_rep["timer"]
+    n_arch = len(map_rep["archive"])
+    print(f"map cli: host loop {[round(f, 2) for f in fps['map']]} frames/s with --loop-correct "
+          f"--save-map, {[round(f, 2) for f in fps['plain']]} without (printed only); archive "
+          f"{t.mean_ms('map.archive'):.3f} ms per keyframe ({n_arch} keyframes, one copy each "
+          f"after the burst's fetch); loop.correct {t.mean_ms('loop.correct'):.1f} ms; "
+          f"launches of the map run {_nonzero(launches)}", flush=True)
+    with np.load(mp) as z:
+        kinds = {k: z[k].dtype.str for k in z.files}
+        n_map = len(z["frame_index"])
+    want = {"version": "<i8", "frame_index": "<i8", "R_wc": "<f4", "p_wc": "<f4", "uv": "<f4",
+            "desc": "<f4", "kp_mask": "|b1"}
+    print(f"map cli: {mp} read by numpy: {n_map} keyframes, {kinds}", flush=True)
+    if kinds != want or n_map != n_arch:
+        _fail(f"map cli: the saved map's keys and dtypes {kinds} are not the reference's")
+    _, text = _main_printing(["--synthetic", str(MAP_FRAMES), "--load-map", mp, "--reloc",
+                              "--output", os.path.join(tmp, "m2.csv")], "map --reloc")
+    if f"loaded map: {n_map} keyframes" not in text:
+        _fail("map cli: no 'loaded map' line")
+
+
+def _map_reloc_check() -> None:
+    """c. tests/test_reloc.py:109's outage on the card: vision blanked, drift
+    injected, then attempt_relocalization on the card and on the CPU with
+    the same archive and live features; the host syncs of one attempt."""
+    from vislam_tpu_torch.backend.reloc import attempt_relocalization
+    from vislam_tpu_torch.backend.trajectory_opt import record_from_feat
+    from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu_torch.engine import VIOEngine
+    from vislam_tpu_torch.frontend.features import extract_features
+    from vislam_tpu_torch.utils.config import SystemConfig
+
+    n, lo_out, hi_out, at = MAP_OUTAGE
+    seq = make_synthetic_sequence(SyntheticConfig(n_frames=n, n_landmarks=300, seed=0))
+    c = seq["calib"]
+    eng = VIOEngine(c, SystemConfig(), device=DEV)
+    state = eng.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0], v_w0=seq["gt_vel"][0],
+                           p_w0=seq["gt_pos"][0])
+    archive, last_kf, j_live = [], 0, n - 5
+    drift = torch.tensor([0.5, -0.3, 0.2], device=DEV)
+    for j in range(1, j_live + 1):
+        imu = np.zeros((16, 6), np.float32)
+        imu[:10] = np.concatenate([seq["imu_gyro"][(j - 1) * 10:j * 10],
+                                   seq["imu_accel"][(j - 1) * 10:j * 10]], -1)
+        dt = np.zeros(16, np.float32)
+        dt[:10] = 1 / 200.0
+        img = np.zeros_like(seq["images"][j]) if lo_out <= j < hi_out else seq["images"][j]
+        gt_norm = float(np.linalg.norm(seq["gt_pos"][j] - seq["gt_pos"][last_kf]))
+        state, res = eng.step(state, img, imu, dt, gt_norm)
+        if bool(res.is_keyframe):
+            last_kf = j
+            if j < lo_out:
+                archive.append(record_from_feat(j, state.kf_R_wc, state.kf_p_wc, state.kf_feat))
+        if j == at:
+            state = state._replace(p_wc=state.p_wc + drift, kf_p_wc=state.kf_p_wc + drift)
+    gt = seq["gt_pos"][j_live]
+    err_before = float(np.linalg.norm(state.p_wc.cpu().numpy() - gt))
+    f = extract_features(torch.from_numpy(seq["images"][j_live]).to(DEV, torch.float32),
+                         eng.cfg.frontend, eng.geom)
+    live = (f.uv, f.desc, f.mask)
+    args = (archive, c.fx, c.fy, c.cx, c.cy)
+    attempt_relocalization(*live, *args, device=DEV)       # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = attempt_relocalization(*live, *args, device=DEV)
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    syncs = _host_syncs(lambda: attempt_relocalization(*live, *args, device=DEV))
+    r_cpu = attempt_relocalization(*[x.cpu() for x in live], *args, device="cpu")
+    if not r.success or not r_cpu.success:
+        _fail(f"map reloc: relocalization failed (card {r.success}, CPU {r_cpu.success})")
+    state = eng.relocalize(state, seq["images"][j_live], r.R_wc, r.p_wc)
+    err_after = float(np.linalg.norm(state.p_wc.cpu().numpy() - gt))
+    dp = float(np.abs(r.p_wc - r_cpu.p_wc).max())
+    print(f"map reloc: {len(archive)} archived keyframes, outage frames {lo_out}-{hi_out - 1}, "
+          f"drift at {at}; frame {j_live}: relocalized against archive entry {r.kf_index} "
+          f"(CPU {r_cpu.kf_index}), {r.n_inliers} inliers (CPU {r_cpu.n_inliers}), rmse "
+          f"{r.rmse:.3f} px; error {err_before:.3f} -> {err_after:.3f} m; card vs CPU max "
+          f"|dp| {dp:.3e} m; one attempt {ms:.1f} ms, {len(syncs)} host syncs "
+          f"{sorted(set(syncs))}; launches {_nonzero(launches)}", flush=True)
+    if not err_after < 0.5 * err_before or r.kf_index != r_cpu.kf_index or not dp <= 1e-3:
+        _fail("map reloc: the relocalization is off, or the card's disagrees with the CPU's")
+
+
+def _pose_graph_problem(rng):
+    """A drifted chain of MAP_NODES keyframes (two laps of a 20 m circle,
+    odometry noise 0.002 rad and 0.01 m per step) and MAP_LOOPS loop edges
+    from the ground truth between the laps (weight 5): (R, t, edge_i,
+    edge_j, edge_R, edge_t, edge_w, t_gt) as float32 numpy."""
+    from scipy.spatial.transform import Rotation as Rsp
+
+    N = MAP_NODES
+    ang = np.linspace(0, 4 * np.pi, N, endpoint=False)
+    R_gt = Rsp.from_euler("z", (ang + np.pi / 2)[:, None]).as_matrix()
+    t_gt = np.stack([20 * np.cos(ang), 20 * np.sin(ang), 0.5 * np.sin(3 * ang)], -1)
+    dR = np.einsum("nji,njk->nik", R_gt[:-1], R_gt[1:])
+    dt = np.einsum("nji,nj->ni", R_gt[:-1], t_gt[1:] - t_gt[:-1])
+    noise_R = Rsp.from_rotvec(rng.normal(scale=0.002, size=(N - 1, 3))).as_matrix()
+    noise_t = rng.normal(scale=0.01, size=(N - 1, 3))
+    R, t = [R_gt[0]], [t_gt[0]]
+    for k in range(N - 1):
+        t.append(R[-1] @ (dt[k] + noise_t[k]) + t[-1])
+        R.append(R[-1] @ noise_R[k] @ dR[k])
+    li = np.linspace(N // 2, N - 1, MAP_LOOPS).astype(np.int32)
+    lj = (li - N // 2).astype(np.int32)
+    ei = np.concatenate([np.arange(N - 1), li]).astype(np.int32)
+    ej = np.concatenate([np.arange(1, N), lj]).astype(np.int32)
+    eR = np.concatenate([np.einsum("nji,njk->nik", np.array(R[:-1]), np.array(R[1:])),
+                         np.einsum("nji,njk->nik", R_gt[li], R_gt[lj])])
+    et = np.concatenate([np.einsum("nji,nj->ni", np.array(R[:-1]), np.diff(np.array(t), axis=0)),
+                         np.einsum("nji,nj->ni", R_gt[li], t_gt[lj] - t_gt[li])])
+    w = np.concatenate([np.ones(N - 1), np.full(MAP_LOOPS, 5.0)])
+    f32 = [np.asarray(x, np.float32) for x in (R, t)]
+    return (*f32, ei, ej, eR.astype(np.float32), et.astype(np.float32), w.astype(np.float32),
+            t_gt)
+
+
+def _map_graph_check() -> None:
+    """d. SE(3) and Sim(3) pose graphs at EVAL config 6's size on the card
+    against the CPU, 0 host syncs inside each, wall ms of each.
+
+    Tolerance: the optimum is fixed only as far as the float32 cost resolves
+    it. Along the chain's weakest direction (normal-matrix eigenvalue 7.6e-7
+    against 19 at the top), moving every node by up to 1 cm changes the cost
+    by 8e-9, under the round-off of its float32 sum (1.4e-3 over 322 edges,
+    ~3e-8): so the final costs agree to 1e-4 relative, positions to 1e-2 m,
+    rotation entries and scales to 1e-3."""
+    from vislam_tpu_torch.backend.pose_graph import PoseGraph, optimize_pose_graph
+    from vislam_tpu_torch.backend.sim3_graph import Sim3Graph, optimize_sim3_graph
+
+    R, t, ei, ej, eR, et, w, t_gt = _pose_graph_problem(np.random.default_rng(0))
+    N, E = R.shape[0], ei.shape[0]
+
+    def graph_of(graph, dev):
+        T = [torch.from_numpy(x).to(dev) for x in (R, t, ei, ej, eR, et, w)]
+        if graph == "se3":
+            return PoseGraph(*T)
+        ones = [torch.ones(n, device=dev) for n in (N, E)]
+        return Sim3Graph(*T[:2], ones[0], *T[2:6], ones[1], T[6])
+
+    def run(g):
+        if isinstance(g, PoseGraph):
+            out, info = optimize_pose_graph(g, iters=15)
+            return out.t, out.R, torch.ones_like(out.t[:, 0]), info["final_cost"]
+        out, info = optimize_sim3_graph(g, iters=15)
+        return out.t, out.R, out.s, info["final_cost"]
+
+    for graph in ("se3", "sim3"):
+        g = graph_of(graph, DEV)
+        run(g)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = run(g)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        syncs = _host_syncs(lambda: run(g))
+        cpu = run(graph_of(graph, "cpu"))
+        d = [float((a.cpu() - b).abs().max()) for a, b in zip(out[:3], cpu[:3])]
+        dc = abs(float(out[3]) - float(cpu[3])) / float(cpu[3])
+        err = [float(np.linalg.norm(x - t_gt, axis=-1).max()) for x in (t, out[0].cpu().numpy())]
+        print(f"map graph {graph}: N = {N} nodes ({(6 if graph == 'se3' else 7) * N} unknowns), "
+              f"{E} edges ({MAP_LOOPS} loops), 15 iterations: {[round(x, 1) for x in ms]} ms "
+              f"on the card (median {float(np.median(ms)):.1f}); {_nvidia_smi()}; drift "
+              f"{err[0]:.3f} -> {err[1]:.3f} m; card vs CPU: final cost {dc:.2e} relative, "
+              f"max |dt| {d[0]:.2e} m, |dR| {d[1]:.2e}, |ds| {d[2]:.2e}; host syncs inside "
+              f"{len(syncs)} {sorted(set(syncs))}", flush=True)
+        if syncs or not (dc <= 1e-4 and d[0] <= 1e-2 and max(d[1:]) <= 1e-3) \
+                or not err[1] < 0.5 * err[0]:
+            _fail(f"map graph {graph}: host syncs, card vs CPU beyond tolerance, or no "
+                  f"correction")
+
+
+def map_phase() -> None:
+    """The map backend on the card: a. loop correction (EVAL config 4's
+    inputs); b. the CLI's map flags; c. relocalization after an outage;
+    d. pose graphs at EVAL config 6's size. Each check fatal."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_map_")
+    try:
+        t0 = time.perf_counter()
+        _map_loop_check()
+        _phase("map a (loop correction)", t0)
+        t0 = time.perf_counter()
+        _map_cli_check(tmp)
+        _phase("map b (cli)", t0)
+        t0 = time.perf_counter()
+        _map_reloc_check()
+        _phase("map c (relocalization)", t0)
+        t0 = time.perf_counter()
+        _map_graph_check()
+        _phase("map d (pose graphs)", t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _phase(name, t0) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1864,6 +2214,9 @@ def main() -> None:
     t0 = time.perf_counter()
     cli_phase(seq)
     _phase("cli", t0)
+    t0 = time.perf_counter()
+    map_phase()
+    _phase("map", t0)
     # The order of what follows: see the module's docstring.
     t0 = time.perf_counter()
     for name, ctx in profiled.items():

@@ -2,9 +2,12 @@
 CPU (--cpu), on the reference CLI tests' fixtures: a synthetic sequence
 (against the JAX CLI on the same sequence), an EuRoC fixture with an
 OpenCV-XML calibration (host loop and --scan), a distorted one, a KITTI
-one, checkpoint and resume; and the flags it refuses.
+one, checkpoint and resume; the map flags (loop correction against the
+reference's backend and CLI, map save, load and relocalization); and the
+flags it refuses.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -195,12 +198,139 @@ def test_cli_kitti_fixture(tmp_path):
     assert np.isfinite(data["est_p"]).all() and np.isfinite(data["gt_p"]).all()
 
 
+def _loops(stdout):
+    """The [(a, b, inliers), ...] of the "loop closures:" line."""
+    line = re.search(r"^loop closures: (.*)$", stdout, re.M)
+    assert line, stdout[-2000:]
+    return ast.literal_eval(line.group(1))
+
+
+def _same_loops(a, b):
+    """Equal pairs in the same order; inliers within 2 (the match twin and
+    XLA can flip a near-tied ratio test, measured 0-1)."""
+    assert [x[:2] for x in a] == [y[:2] for y in b] and a, (a, b)
+    assert all(abs(x[2] - y[2]) <= 2 for x, y in zip(a, b)), (a, b)
+
+
+@pytest.fixture(scope="module")
+def loop86(tmp_path_factory):
+    """--synthetic 86 (the path revisits its start at frame 80) with
+    --loop-correct and --save-map, run at once by the reference CLI and by
+    the port (SE(3) and --loop-sim3): {name: (stdout, csv, map)}."""
+    d = tmp_path_factory.mktemp("loop")
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2", "PYTHONPATH": REPO}
+    runs = {"reference": ("vislam_tpu.cli", []), "se3": ("vislam_tpu_torch.cli", []),
+            "sim3": ("vislam_tpu_torch.cli", ["--loop-sim3"])}
+    procs = {}
+    for name, (module, extra) in runs.items():
+        out, mp = str(d / f"{name}.csv"), str(d / f"{name}.npz")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", module, "--cpu", "--synthetic", "86", "--loop-correct",
+             *extra, "--save-map", mp, "--output", out], cwd=REPO, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE), out, mp)
+    done = {}
+    for name, (proc, out, mp) in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        assert proc.returncode == 0, stderr[-3000:]
+        done[name] = (stdout, out, mp)
+    return done
+
+
+@pytest.mark.parametrize("graph", ["se3", "sim3"])
+def test_cli_loop_correct_against_reference(loop86, graph):
+    """The port CLI's loop line and corrected keyframe rows are the
+    reference backend's (`correct_trajectory`, SE(3) or Sim(3)) on the
+    archive the port CLI saved: the same loops, rows within 1e-3 m. The
+    reference CLI on the same sequence also closes loops, its ATE within
+    0.05 m of the port's (the RANSAC draws differ, so the archives do)."""
+    from vislam_tpu.backend.mapio import load_map
+    from vislam_tpu.backend.trajectory_opt import correct_trajectory
+    from vislam_tpu.data.synthetic import synthetic_calib
+
+    stdout, out, mp = loop86[graph]
+    c = synthetic_calib()
+    archive = load_map(mp)
+    p_ref, _, info = correct_trajectory(archive, c.fx, c.fy, c.cx, c.cy,
+                                        use_sim3=graph == "sim3")
+    _same_loops(_loops(stdout), info["loops"])
+    data = read_trajectory_csv(out)
+    by_frame = {k.frame_index: i for i, k in enumerate(archive)}
+    kf = [n for n, f in enumerate(data["frame"]) if int(f) in by_frame]
+    assert len(kf) == len(archive) > 10
+    np.testing.assert_allclose(data["est_p"][kf],
+                               p_ref[[by_frame[int(data["frame"][n])] for n in kf]],
+                               atol=1e-3, rtol=0)
+    ref = loop86["reference"][0]
+    assert _loops(ref) and abs(_ate(stdout) - _ate(ref)) < 0.05
+
+
+def test_cli_loop_correct_on_reference_map(loop86, tmp_path):
+    """The port CLI, no frame stepped, on the map the reference CLI saved
+    (--load-map): the reference CLI's own loop line."""
+    r = _port(["--synthetic", "1", "--load-map", loop86["reference"][2], "--loop-correct",
+               "--output", str(tmp_path / "t.csv")])
+    assert "loaded map: " in r.stdout
+    _same_loops(_loops(r.stdout), _loops(loop86["reference"][0]))
+
+
+def test_cli_save_then_load_map_and_reloc(tmp_path):
+    """tests/test_mapio.py:45 for the port: --save-map in one run (a map the
+    reference's load_map reads), --load-map --reloc in the next."""
+    from vislam_tpu.backend.mapio import load_map
+
+    mp = str(tmp_path / "m.npz")
+    r1 = _port(["--synthetic", "16", "--output", str(tmp_path / "a.csv"), "--save-map", mp])
+    assert "map saved: " in r1.stdout
+    assert len(load_map(mp)) >= 2
+    r2 = _port(["--synthetic", "16", "--output", str(tmp_path / "b.csv"), "--load-map", mp,
+                "--reloc"])
+    assert f"loaded map: {len(load_map(mp))} keyframes" in r2.stdout
+    assert np.isfinite(read_trajectory_csv(str(tmp_path / "b.csv"))["est_p"]).all()
+
+
+def test_cli_relocalizes_with_the_head_image(tmp_path, monkeypatch):
+    """--reloc during an outage (every frame's matches forced to 0; an
+    archive of two keyframes loaded): from the 3rd frame on, each processed
+    row's attempt extracts features from the newest dispatched image (the
+    head of its burst of 4), the image the head state is re-anchored with,
+    as the divergence guard does; the reference's dataset branch passes the
+    drained frame's image instead (its cli.py:642)."""
+    import vislam_tpu_torch.backend.reloc as reloc
+    import vislam_tpu_torch.engine as engine
+    import vislam_tpu_torch.frontend.features as features
+    from vislam_tpu_torch.backend.mapio import save_map
+    from vislam_tpu_torch.backend.trajectory_opt import KeyframeRecord
+    from vislam_tpu_torch.data import SyntheticConfig as TSynCfg
+    from vislam_tpu_torch.data import make_synthetic_sequence as t_make_seq
+
+    rng = np.random.default_rng(0)
+    mp = str(tmp_path / "m.npz")
+    save_map(mp, [KeyframeRecord(i, np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                                 rng.uniform(0, 400, (8, 2)).astype(np.float32),
+                                 rng.normal(size=(8, 128)).astype(np.float32),
+                                 np.ones(8, bool)) for i in range(2)])
+    seen = []
+    unpack, extract = engine.unpack_host_result, features.extract_features
+
+    def extract_spy(image, *args, **kw):
+        seen.append(image.to(torch.uint8).numpy())
+        return extract(image, *args, **kw)
+
+    monkeypatch.setattr(engine, "unpack_host_result",
+                        lambda row: unpack(row)._replace(num_matches=0))
+    monkeypatch.setattr(features, "extract_features", extract_spy)
+    monkeypatch.setattr(reloc, "attempt_relocalization",
+                        lambda *a, **k: reloc.RelocResult(False, None, None, -1, 0, float("inf")))
+    assert cli.main(["--cpu", "--synthetic", "9", "--reloc", "--load-map", mp,
+                     "--output", str(tmp_path / "t.csv")]) == 0
+    images = t_make_seq(TSynCfg(n_frames=9, n_landmarks=300, seed=0))["images"]
+    # Rows 1-4 (head 4) and 5-8 (head 8); attempts from the 3rd row on.
+    assert len(seen) == 6
+    for got, head in zip(seen, [4, 4, 8, 8, 8, 8]):
+        np.testing.assert_array_equal(got, images[head])
+
+
 REFUSED = [
-    (["--reloc"], "queue 1 item 5"),
-    (["--loop-correct"], "queue 1 item 5"),
-    (["--loop-sim3"], "queue 1 item 5"),
-    (["--save-map", "m.npz"], "queue 1 item 5"),
-    (["--load-map", "m.npz"], "queue 1 item 5"),
     (["--dist-ba", "8"], "queue 1 item 6"),
     (["--photometric"], "queue 1 item 4"),
     (["--oriented"], "queue 1 item 4"),

@@ -1,5 +1,6 @@
-"""Two-view midpoint triangulation (port of
-`vislam_tpu/backend/triangulate.py::triangulate_midpoint`)."""
+"""Two-view triangulation (port of `vislam_tpu/backend/triangulate.py`):
+the midpoint method the step and the loop measurement use, and the
+homogeneous DLT."""
 
 from __future__ import annotations
 
@@ -32,3 +33,23 @@ def triangulate_midpoint(rays_i, rays_j, R_ji, t_ji):
     mid_j = 0.5 * (p_on_i + p_on_j)
     X_i = torch.einsum("...ji,...j->...i", R_ji, mid_j - t_ji)
     return X_i, d_i, d_j, gap
+
+
+def triangulate_dlt(uv_i, uv_j, P_i, P_j):
+    """Homogeneous DLT triangulation (cv::triangulatePoints semantics).
+
+    uv_*: (M, 2) pixel coords; P_*: (3, 4) projection matrices. Returns
+    (M, 3) points (dehomogenized). The smallest eigenvector of each A^T A
+    comes from `torch.linalg.eigh`, which waits for the device on CUDA (it
+    checks its solver's status on the host); no path of the port calls
+    this function.
+    """
+    def rows(uv, P):
+        return uv[:, 0:1] * P[2:3, :] - P[0:1, :], uv[:, 1:2] * P[2:3, :] - P[1:2, :]
+
+    A = torch.stack([*rows(uv_i, P_i), *rows(uv_j, P_j)], dim=1)  # (M, 4, 4)
+    _, vecs = torch.linalg.eigh(torch.einsum("mij,mik->mjk", A, A))
+    Xh = vecs[..., 0]
+    w = Xh[:, 3:4]
+    safe_w = torch.where(w.abs() > 1e-12, w, torch.full_like(w, 1e-12))
+    return Xh[:, :3] / safe_w

@@ -5,6 +5,8 @@ TUM), the wall time, the stage report and the ATE printed.
     python -m vislam_tpu_torch.cli --synthetic 60
     python -m vislam_tpu_torch.cli --dataset <dir> [--format euroc|tum|kitti]
                                    [--calibration x.xml] [--scan] [--cpu]
+    python -m vislam_tpu_torch.cli --synthetic 86 --loop-correct [--loop-sim3]
+                                   [--save-map m.npz | --load-map m.npz --reloc]
 
 The engine runs on the card ("cuda") unless --cpu is given; with no card
 and no --cpu the run stops with an error, nothing falls back.
@@ -20,10 +22,20 @@ Dataset frames are read ahead by a worker thread and, on the card, handed
 over in pinned memory as uint8 (copied without waiting, cast on the card;
 a distorted camera's remap runs there too).
 
+The map (`backend/`): with --loop-correct, --reloc or --save-map each
+keyframe's pose and fine-level features are copied to the host archive as
+its row is processed (one copy, after the burst's fetch; --scan
+re-extracts them from the staged images, for --loop-correct). --reloc
+tries to relocalize against the archive (and a --load-map map) after 3
+frames in a row with < 20 matches, and re-anchors the head state with the
+head image on success, as the divergence guard does. After the run,
+--loop-correct corrects the keyframe rows by an SE(3) (or --loop-sim3
+Sim(3)) pose graph and --save-map writes the archive. Without these flags
+the loop does nothing more per frame.
+
 Flags of modules the port does not have yet exit with status 2 and name
-their ROADMAP.md item: --reloc, --loop-correct, --loop-sim3, --save-map,
---load-map, --dist-ba, --photometric, --oriented, --gauge marg|oldest2,
---plot, --live-viz.
+their ROADMAP.md item: --dist-ba, --photometric, --oriented, --gauge
+marg|oldest2, --plot, --live-viz.
 """
 
 from __future__ import annotations
@@ -37,7 +49,6 @@ from collections import deque
 import numpy as np
 import torch
 
-_MAP = "queue 1 item 5 (the map backend)"
 _PARALLEL = "queue 1 item 6 (parallel/)"
 _FRONTEND = "queue 1 item 4 (frontend variants)"
 _GAUGES = "queue 1 item 7 (the marg and oldest2 gauges)"
@@ -50,11 +61,6 @@ PIPE_BURST = 4
 def _rejected(args) -> list:
     """(flag, ROADMAP item) of every given flag whose module is not ported."""
     flags = [
-        (args.reloc, "--reloc", _MAP),
-        (args.loop_correct, "--loop-correct", _MAP),
-        (args.loop_sim3, "--loop-sim3", _MAP),
-        (args.save_map, "--save-map", _MAP),
-        (args.load_map, "--load-map", _MAP),
         (args.dist_ba, "--dist-ba", _PARALLEL),
         (args.photometric, "--photometric", _FRONTEND),
         (args.oriented, "--oriented", _FRONTEND),
@@ -113,12 +119,23 @@ def _parser() -> argparse.ArgumentParser:
                          "and at the end of a synthetic run")
     ap.add_argument("--resume", action="store_true",
                     help="resume from --checkpoint at its frame index")
+    ap.add_argument("--reloc", action="store_true",
+                    help="relocalize against the keyframe archive after a visual outage "
+                         "(host-loop modes): place recognition + PnP snap the drifted "
+                         "pose back onto the map")
+    ap.add_argument("--loop-correct", action="store_true",
+                    help="offline loop-closure detection + pose-graph correction after "
+                         "the run")
+    ap.add_argument("--loop-sim3", action="store_true",
+                    help="use a 7-DoF Sim(3) pose graph for --loop-correct (distributes "
+                         "monocular scale drift along the trajectory)")
+    ap.add_argument("--save-map", default=None, metavar="PATH.npz",
+                    help="save the keyframe archive (map) after the run for later "
+                         "--load-map sessions")
+    ap.add_argument("--load-map", default=None, metavar="PATH.npz",
+                    help="preload a saved keyframe map: --reloc localizes against it "
+                         "from frame one and --loop-correct sees its keyframes too")
     # Flags of modules not ported yet: parsed, then refused (_rejected).
-    ap.add_argument("--reloc", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--loop-correct", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--loop-sim3", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--save-map", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--load-map", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-ba", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--photometric", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--oriented", action="store_true", help=argparse.SUPPRESS)
@@ -130,7 +147,9 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None, report: dict | None = None) -> int:
     """Run the CLI. `report`, if given, receives the run's figures: rows,
     wall (s), frames, the stage timer (its "drain" stage: one call per
-    burst fetched), read_s / frames_read (the loader thread's), the ATE."""
+    burst fetched), read_s / frames_read (the loader thread's), the ATE,
+    the keyframe archive and the loop correction's info (None unless
+    --loop-correct ran it)."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint:
@@ -203,6 +222,12 @@ def _run(args, device, report) -> int:
     pending = deque()
     loader = None
     last_good = {"R": None, "p": None}
+    kf_archive, outage, loop_info = [], {"n": 0}, None
+    if args.load_map:
+        from vislam_tpu_torch.backend.mapio import load_map
+
+        kf_archive.extend(load_map(args.load_map))
+        print(f"loaded map: {len(kf_archive)} keyframes from {args.load_map}")
 
     def save_ckpt(state, frame_index, last_kf, last_kf_pos=None):
         if not args.checkpoint:
@@ -219,6 +244,13 @@ def _run(args, device, report) -> int:
         print(f"resumed from {args.checkpoint} at frame {fidx}")
         return state, fidx, load_checkpoint_meta(args.checkpoint)
 
+    def anchored(state, res):
+        """A frame's row once the head state was re-anchored: its pose, a
+        keyframe."""
+        q = state.q_wb.cpu()
+        return res._replace(p_wc=state.p_wc.cpu().numpy(), q_wb=q.numpy(), is_keyframe=True,
+                            rpy=lie.quat_to_rpy(q).numpy())
+
     def maybe_recover(eng, state, image, res, frame_index):
         """Divergence guard: a non-finite pose re-anchors the head state at
         the last finite pose (relocalize restarts the window and clears
@@ -231,9 +263,45 @@ def _run(args, device, report) -> int:
         print(f"divergence at frame {frame_index}: non-finite pose; "
               f"re-anchoring at last good pose")
         state = eng.relocalize(state, image, last_good["R"], last_good["p"])
-        q = state.q_wb.cpu()
-        return state, res._replace(p_wc=state.p_wc.cpu().numpy(), q_wb=q.numpy(),
-                                   is_keyframe=True, rpy=lie.quat_to_rpy(q).numpy())
+        return state, anchored(state, res)
+
+    def archive_keyframe(st, frame_index):
+        """The keyframe's pose and fine-level features into the archive."""
+        if not (args.loop_correct or args.reloc or args.save_map):
+            return
+        from vislam_tpu_torch.backend.trajectory_opt import record_from_feat
+
+        with timer.stage("map.archive"):
+            kf_archive.append(record_from_feat(frame_index, st.kf_R_wc, st.kf_p_wc,
+                                               st.kf_feat))
+
+    def maybe_relocalize(eng, state, image, res):
+        """After >= 3 frames in a row with < 20 matches, try to snap the head
+        state back onto the map with the head image (backend/reloc.py).
+        Returns the state, re-anchored where that succeeded."""
+        if not args.reloc:
+            return state
+        if res.num_matches >= 20:
+            outage["n"] = 0
+            return state
+        outage["n"] += 1
+        if outage["n"] < 3 or len(kf_archive) < 2:
+            return state
+        from vislam_tpu_torch.backend.reloc import attempt_relocalization
+        from vislam_tpu_torch.frontend.features import extract_features
+
+        c = eng.calib
+        with timer.stage("reloc.attempt"):
+            f = extract_features(torch.as_tensor(image).to(eng.device, torch.float32),
+                                 eng.cfg.frontend, eng.geom)
+            r = attempt_relocalization(f.uv, f.desc, f.mask, kf_archive, c.fx, c.fy, c.cx, c.cy,
+                                       device=eng.device)
+        if not r.success:
+            return state
+        print(f"relocalized against keyframe {kf_archive[r.kf_index].frame_index} "
+              f"({r.n_inliers} inliers, rmse {r.rmse:.2f} px)")
+        outage["n"] = 0
+        return eng.relocalize(state, image, r.R_wc, r.p_wc)
 
     def drain(process):
         """Fetch every pending frame's packed result in one copy, then
@@ -296,12 +364,18 @@ def _run(args, device, report) -> int:
             return (img.pin_memory() if pin else img), imu, dt
 
         def process(item, head_img, res):
-            nonlocal state, last_kf
+            nonlocal state, last_kf, kf_gt_pos
             j, _, st_j, _ = item
             if res.is_keyframe:
                 last_kf = j
+                archive_keyframe(st_j, j)
                 save_ckpt(st_j, j, last_kf)
             state, res = maybe_recover(eng, state, head_img, res, j)
+            new = maybe_relocalize(eng, state, head_img, res)
+            if new is not state:
+                state, last_kf = new, j
+                kf_gt_pos = np.asarray(seq["gt_pos"][j], np.float32)
+                res = anchored(state, res)
             track(res)
             gt_positions.append(seq["gt_pos"][j])
             rows.append(row(j, seq["t_cam_ns"][j], res, seq["gt_pos"][j], seq["gt_rpy"][j],
@@ -397,6 +471,15 @@ def _run(args, device, report) -> int:
                                  is_kf=bool(res_np.is_keyframe[k]), est_p=res_np.p_wc[k],
                                  est_rpy=rpy_all[k], est_q=res_np.q_wb[k], est_v=res_np.v_w[k],
                                  gt_p=gtp, gt_rpy=None, gt_q=None, gt_v=None))
+            if args.loop_correct:
+                # The scan carries no features: the keyframes' are extracted
+                # again from the staged images.
+                from vislam_tpu_torch.backend.trajectory_opt import keyframes_from_scan
+
+                with timer.stage("loop.archive"):
+                    kf_archive.extend(keyframes_from_scan(inputs.images, res_np,
+                                                          eng.cfg.frontend, start + 1,
+                                                          geom=eng.geom))
         else:
             last_kf_pos = gt_p0
             loop_start = start + 1
@@ -409,13 +492,21 @@ def _run(args, device, report) -> int:
             kf_gt_pos = np.asarray(last_kf_pos, np.float32)
 
             def process(item, head_img, res):
-                nonlocal state, last_kf_pos
+                nonlocal state, last_kf_pos, kf_gt_pos
                 fw = item[0]
                 if res.is_keyframe:
                     if fw.gt_pos is not None:
                         last_kf_pos = fw.gt_pos
+                    archive_keyframe(item[2], fw.index)
                     save_ckpt(item[2], fw.index, fw.index, last_kf_pos=last_kf_pos)
                 state, res = maybe_recover(eng, state, head_img, res, fw.index)
+                new = maybe_relocalize(eng, state, head_img, res)
+                if new is not state:
+                    state = new
+                    if fw.gt_pos is not None:
+                        last_kf_pos = fw.gt_pos
+                        kf_gt_pos = np.asarray(fw.gt_pos, np.float32)
+                    res = anchored(state, res)
                 track(res)
                 if fw.gt_pos is not None:
                     gt_positions.append(fw.gt_pos)
@@ -450,6 +541,26 @@ def _run(args, device, report) -> int:
             drain(process)
             wall = time.perf_counter() - t0
 
+    if args.loop_correct and len(kf_archive) > 10:
+        from vislam_tpu_torch.backend.trajectory_opt import correct_trajectory
+
+        c = eng.calib
+        with timer.stage("loop.correct"):
+            p_corr, _, loop_info = correct_trajectory(kf_archive, c.fx, c.fy, c.cx, c.cy,
+                                                      use_sim3=args.loop_sim3, device=device)
+        print(f"loop closures: {loop_info['loops']}")
+        if loop_info["loops"]:
+            # The corrected keyframe positions replace their rows'.
+            by_frame = {k.frame_index: i for i, k in enumerate(kf_archive)}
+            for r in rows:
+                i = by_frame.get(r["frame"])
+                if i is not None:
+                    r["est_p"] = p_corr[i]
+    if args.save_map and kf_archive:
+        from vislam_tpu_torch.backend.mapio import save_map
+
+        save_map(args.save_map, kf_archive)
+        print(f"map saved: {len(kf_archive)} keyframes to {args.save_map}")
     write_trajectory_csv(args.output, rows)
     if args.output_tum:
         write_trajectory_tum(args.output_tum, rows)
@@ -480,7 +591,8 @@ def _run(args, device, report) -> int:
     print(f"trajectory written to {args.output}")
     report.update(rows=rows, wall=wall, frames=n, timer=timer, ate=ate,
                   read_s=loader.read_seconds if loader else 0.0,
-                  frames_read=loader.frames_read if loader else 0)
+                  frames_read=loader.frames_read if loader else 0,
+                  archive=kf_archive, loop_info=loop_info)
     return 0
 
 

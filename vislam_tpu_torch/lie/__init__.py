@@ -1,4 +1,4 @@
-"""Quaternion, SO(3), SE(3) and roll-pitch-yaw math (port of vislam_tpu.lie)."""
+"""Quaternion, SO(3), SE(3), Sim(3) and roll-pitch-yaw math (port of vislam_tpu.lie)."""
 
 from vislam_tpu_torch.lie.quat import (
     mat_to_quat,
@@ -16,7 +16,22 @@ from vislam_tpu_torch.lie.so3 import (
     so3_log,
     so3_vee,
 )
-from vislam_tpu_torch.lie.se3 import se3_exp, se3_log
+from vislam_tpu_torch.lie.se3 import (
+    se3_adjoint,
+    se3_apply,
+    se3_compose,
+    se3_exp,
+    se3_inverse,
+    se3_log,
+)
+from vislam_tpu_torch.lie.sim3 import (
+    sim3_apply,
+    sim3_compose,
+    sim3_exp,
+    sim3_identity,
+    sim3_inverse,
+    sim3_log,
+)
 from vislam_tpu_torch.lie.euler import (
     angle_diff,
     mat_to_rpy,

@@ -1,6 +1,7 @@
-"""SE(3) exponential and logarithm maps on (R, t) pairs (port of
-`vislam_tpu/lie/se3.py`, the part the bundle adjustments reach). Twists are
-(...,6) laid out [rho(3), phi(3)]: translation first, rotation second."""
+"""SE(3) rigid transforms as (R, t) pairs (port of `vislam_tpu/lie/se3.py`:
+exp, log, compose, inverse, apply and the adjoint). A transform is the
+tuple (R, t) with R (...,3,3) and t (...,3); twists are (...,6) laid out
+[rho(3), phi(3)]: translation first, rotation second."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 
 from vislam_tpu_torch.lie.so3 import (
     so3_exp,
+    so3_hat,
     so3_left_jacobian,
     so3_left_jacobian_inv,
     so3_log,
@@ -26,3 +28,30 @@ def se3_log(T):
     phi = so3_log(R)
     rho = (so3_left_jacobian_inv(phi) @ t[..., None])[..., 0]
     return torch.cat([rho, phi], dim=-1)
+
+
+def se3_compose(A, B):
+    """A after B: the result maps p -> A(B(p))."""
+    Ra, ta = A
+    Rb, tb = B
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def se3_inverse(T):
+    R, t = T
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_apply(T, p):
+    """Apply the transform to points p (...,3) (broadcasts)."""
+    R, t = T
+    return (R @ p[..., None])[..., 0] + t
+
+
+def se3_adjoint(T):
+    """Adjoint (...,6,6) mapping twists: Ad_T = [[R, hat(t) R], [0, R]]."""
+    R, t = T
+    top = torch.cat([R, so3_hat(t) @ R], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
