@@ -119,6 +119,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
           card and on the CPU: final costs within 1e-4 relative, positions
           within 1e-2 m (what the float32 cost resolves), rotations and
           scales within 1e-3, 0 host syncs inside, wall ms printed;
+     Then the step options (phase variants), each check fatal, each path
+     at 480x752, K = 768 (the KITTI mode: one level, K = 512), from the
+     true initial state:
+       oriented      oriented SIFT (frontend.oriented), GT scale, 60 frames
+       gated         the always-on guided match, 30 px, GT scale, 60
+       photometric   the photometric refine on EVAL config 3's sequence
+                     (seed 1, 350 landmarks, its amplitudes), GT scale, 59
+       marg          SLAM mode with the marg gauge on config 3's sequence,
+                     GT-free, 59 (EVAL row 3b's run)
+       oldest2       the in-step vision-only window BA under the oldest2
+                     gauge, GT scale, 30
+       batch_vision  run_batch_scan with vision-only rotation, 4 x 20
+     each with its exact launches per frame (every other counter 0; gated:
+     one gated match and no other), frames/s of one run, 0 host syncs per
+     step, its first 10 frames on the CPU with the same draws (keyframes
+     equal, positions at the tier-1 tolerances; oldest2 each CPU step from
+     the card's state before it), its ATE beside the reference's on the
+     same run (scripts/variant_reference_ate.py) and EVAL config 3's
+     regenerated rows, bounded at 0.5 m where the reference meets it;
+     batch_vision each entry against its unbatched card run;
   4. stage times: for each 60-frame path, where a frame's wall time goes
      (each stage alone, synchronised; the GT-free paths add
      vi_align_window, slam refine_window);
@@ -135,9 +155,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      one bfloat16 pass) and the share of the graph time the bound is;
   7. traces: for each 60-frame path, torch.profiler over 3 frames (slam:
      1), and for each batched path over its first steps (2; batch_slam
-     1) and one step's RANSAC draws alone: the device busy share,
-     launches per frame (per batched step) and the kernels by device
-     time.
+     1) and one step's RANSAC draws alone, and one frame (batched step)
+     of each variant path: the device busy share, launches per frame (per
+     batched step) and the kernels by device time.
 Each phase prints its own wall time ("phase ...: s"). vmap's per-example
 fallback is disabled, so an operator without a batching rule fails the
 run instead of looping over a batch.
@@ -281,7 +301,8 @@ class BatchPath:
 # Per batched step: one response launch per level and the two matches
 # (main, gated rescue; A per pair) for the whole batch; SLAM mode adds the
 # window match (an A per sequence shared by its W slots).
-_BATCH_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2}
+_BATCH_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2,
+               "match_top2_gated": 1}
 BATCH_PATHS = {
     "batch8": BatchPath(8, N_FRAMES, _BATCH_STEP, accuracy=True),
     "batch32": BatchPath(32, 24, _BATCH_STEP),
@@ -493,6 +514,7 @@ def _counters():
     out["fed_evolve"] = (fed_evolve, "launches", None)
     out["match_top2"] = (match_top2, "launches", None)
     out["match_top2_batched"] = (match_top2, "batched_launches", None)
+    out["match_top2_gated"] = (match_top2, "gated_launches", None)
     return out
 
 
@@ -2135,6 +2157,324 @@ def map_phase() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------- phase variants
+@dataclasses.dataclass(frozen=True)
+class VariantPath:
+    """A step option's path: its sequence ("seq0": seed 0, 300 landmarks;
+    "seq3": EVAL config 3's), frames, overrides, GT or IMU scale, the
+    launches per frame of every counter (every other 0), how its first
+    N_SHORT frames are checked on the CPU ("scan": both devices run them
+    from the true initial state; "per_frame": each CPU step starts from
+    the card's state before it), at how many window-BA LM iterations (0:
+    the path's own) and at what tolerance, the reference's ATE
+    on the same run (`scripts/variant_reference_ate.py`, the JAX package
+    on the CPU), EVAL config 3's regenerated row it corresponds to, and
+    whether the ATE is bounded (where the reference meets 0.5 m)."""
+
+    per_frame: dict
+    frames: int
+    sequence: str = "seq0"
+    frontend: dict = dataclasses.field(default_factory=dict)
+    backend: dict = dataclasses.field(default_factory=dict)
+    engine: dict = dataclasses.field(default_factory=dict)
+    gt_scale: bool = True
+    cpu_check: str = "scan"
+    check_lm_iters: int = 0
+    atol: float = 2e-3
+    ref_ate: float = 0.0
+    eval_row: str = ""
+    bounded: bool = True
+
+
+# Per frame, besides each level's response: the main match and the gated
+# rescue (gated match: the main match only); the in-step window refine
+# adds the window match (one batched call).
+_VARIANT_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2,
+                 "match_top2_gated": 1}
+_WINDOW = {"match_top2": 3, "match_top2_batched": 1}
+# EVAL config 3's rows regenerated on the JAX package at this tree's parent
+# (scripts/variant_reference_ate.py: scripts/eval_configs.py's run_vio).
+EVAL3 = {"3 plain": 0.1076, "3 +photometric": 0.1040, "3b marg gauge": 0.1515}
+VARIANT_PATHS = {
+    "oriented": VariantPath(_VARIANT_STEP, 60, frontend=dict(oriented=True), ref_ate=0.3092),
+    "gated": VariantPath({"shi_tomasi": 2, "match_top2": 1, "match_top2_per_pair": 1,
+                          "match_top2_gated": 1}, 60, frontend=dict(guided_gate_px=30.0),
+                         ref_ate=0.2438),
+    # The refine amplifies round-off (the reference against itself moves
+    # 1.25e-2 m under a 2-ulp image change): tier-1's 2.5e-2 m.
+    "photometric": VariantPath(_VARIANT_STEP, 59, "seq3", engine=dict(photometric_refine=True),
+                               atol=2.5e-2, ref_ate=0.1032, eval_row="3 +photometric"),
+    # EVAL 3b's run: GT-free SLAM mode, the whole sequence (the prior is
+    # active only after the VI-BA engages, ~20 keyframes in).
+    "marg": VariantPath({**_VARIANT_STEP, **_WINDOW}, 59, "seq3", gt_scale=False,
+                        backend=dict(vi_factors=True, refine_in_step=True, online_gauge="marg"),
+                        atol=1e-2, ref_ate=0.1499, eval_row="3b marg gauge"),
+    # Vision only at GT scale: past ~4 LM iterations a window pinned only
+    # by slot 0 drifts along a weak direction (2.4e-2 m card vs CPU on one
+    # frame at 12, PR 9 run 1; the reference moves 1.1e-4 m under 2 ulps,
+    # tests/test_torch_variants_gauges.py). So the check steps each frame
+    # from the card's state at 4 iterations, as tier-1 holds this refine.
+    "oldest2": VariantPath({**_VARIANT_STEP, **_WINDOW}, 30,
+                           backend=dict(refine_in_step=True, online_gauge="oldest2"),
+                           cpu_check="per_frame", check_lm_iters=4, atol=1e-2, ref_ate=1.0758,
+                           bounded=False),
+}
+BATCH_VISION = (4, 20)      # sequences (seeds 0 to 3), frames
+BATCH_VISION_REF_ATE = (0.9977, 1.1544, 1.0870, 0.8511)
+# Per batched step: one level, the main match, no rescue.
+BATCH_VISION_STEP = {"shi_tomasi": 1, "match_top2": 1, "match_top2_per_pair": 1}
+
+
+def _variant_config(vp):
+    from vislam_tpu_torch.utils.config import SystemConfig
+
+    base = SystemConfig()
+    return dataclasses.replace(
+        base, frontend=dataclasses.replace(base.frontend, **vp.frontend),
+        backend=dataclasses.replace(base.backend, **vp.backend),
+        engine=dataclasses.replace(base.engine, **vp.engine))
+
+
+def _launches_equal(name, launches, per, steps) -> None:
+    for counter, n in launches.items():
+        if n != per.get(counter, 0) * steps:
+            _fail(f"{name}: {counter} launched {n} times over {steps} steps (expected "
+                  f"{per.get(counter, 0)} per step)")
+
+
+def _cpu_noises(eng, n):
+    from vislam_tpu_torch.engine.engine import frame_generator
+    from vislam_tpu_torch.frontend.pose import gumbel_noise
+
+    H, M = eng.cfg.backend.ransac_hyps, eng.cfg.frontend.max_keypoints
+    out = []
+    for k in range(n):
+        g = frame_generator(0, k, "cpu")
+        out.append((gumbel_noise(g, H, M, "cpu"), gumbel_noise(g, H, M, "cpu")))
+    return out
+
+
+def _variant_cpu_check(name, vp, eng, init, inputs) -> None:
+    """The first N_SHORT frames on the CPU with the card's draws (with
+    vp.check_lm_iters, both devices at that many LM iterations)."""
+    from vislam_tpu_torch.engine import VIOEngine, run_sequence_scan
+
+    cfg = eng.cfg
+    if vp.check_lm_iters:
+        cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
+            cfg.backend, lm_iters=vp.check_lm_iters))
+        eng = VIOEngine(eng.calib, cfg, device=DEV)
+    cpu = VIOEngine(eng.calib, cfg, device="cpu")
+    noises = _cpu_noises(eng, N_SHORT)
+    sub = _first_frames(inputs, N_SHORT)
+    cpu_in = sub._replace(**{k: getattr(sub, k).cpu()
+                             for k in ("images", "imu", "imu_dt", "gt_pos")})
+    if vp.cpu_check == "scan":
+        _, r_gpu = run_sequence_scan(eng, init(eng), sub,
+                                     noises=[(a.to(DEV), b.to(DEV)) for a, b in noises])
+        _, r_cpu = run_sequence_scan(cpu, init(cpu), cpu_in, noises=noises)
+        kf_g, kf_c = r_gpu.is_keyframe.cpu(), r_cpu.is_keyframe
+        dp = (r_gpu.p_wc.cpu() - r_cpu.p_wc).abs().max().item()
+    else:
+        state, kf_gt = init(eng), init(eng).p_wc.clone()
+        kf_g, kf_c, dps = [], [], []
+        for k in range(N_SHORT):
+            one = _first_frames(sub, k + 1, start=k)
+            one_cpu = _first_frames(cpu_in, k + 1, start=k)
+            draw = noises[k:k + 1]
+            _, r_c = run_sequence_scan(cpu, _to_device(state, "cpu"), one_cpu,
+                                       kf_gt_pos0=kf_gt.cpu(), noises=draw)
+            state, r_g = run_sequence_scan(eng, state, one, kf_gt_pos0=kf_gt,
+                                           noises=[(a.to(DEV), b.to(DEV)) for a, b in draw])
+            kf_gt = torch.where(r_g.is_keyframe[0], one.gt_pos[0], kf_gt)
+            kf_g.append(bool(r_g.is_keyframe[0]))
+            kf_c.append(bool(r_c.is_keyframe[0]))
+            dps.append((r_g.p_wc[0].cpu() - r_c.p_wc[0]).abs().max().item())
+        kf_g, kf_c, dp = torch.tensor(kf_g), torch.tensor(kf_c), max(dps)
+        print(f"variant {name}: per frame, card vs CPU |dp| {[f'{d:.1e}' for d in dps]} m",
+              flush=True)
+    print(f"variant {name}: card vs CPU plain twins over {N_SHORT} frames "
+          f"({'each from the card state' if vp.cpu_check == 'per_frame' else 'one run each'}"
+          f"{f', both at {vp.check_lm_iters} LM iterations' if vp.check_lm_iters else ''}): "
+          f"keyframes equal {bool(torch.equal(kf_g, kf_c))}, max |dp_wc| {dp:.3e} m "
+          f"(tolerance {vp.atol:g})", flush=True)
+    if not torch.equal(kf_g, kf_c) or not dp <= vp.atol:
+        _fail(f"variant {name}: the card's run disagrees with the CPU plain twins")
+
+
+def _first_frames(inputs, n, start=0):
+    return inputs._replace(images=inputs.images[start:n], imu=inputs.imu[start:n],
+                           imu_dt=inputs.imu_dt[start:n], gt_pos=inputs.gt_pos[start:n])
+
+
+def variant_path(name, seqs) -> tuple:
+    """Drive one step option's path; returns what the trace replays."""
+    from vislam_tpu_torch.engine import VIOEngine, make_sequence_inputs, run_sequence_scan
+    from vislam_tpu_torch.eval import ate_rmse
+
+    vp = VARIANT_PATHS[name]
+    seq, N = seqs[vp.sequence], vp.frames
+    eng = VIOEngine(seq["calib"], _variant_config(vp), device=DEV)
+
+    def init(e):
+        return e.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0],
+                            v_w0=seq["gt_vel"][0], p_w0=seq["gt_pos"][0])
+
+    inputs = make_sequence_inputs(seq, 1, 1 + N, use_gt_scale=vp.gt_scale, device=DEV)
+    run_sequence_scan(eng, init(eng), _first_frames(inputs, 3))     # warm-up
+    state0 = init(eng)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, res = run_sequence_scan(eng, state0, inputs)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    p = res.p_wc.cpu().numpy()
+    if p.shape != (N, 3) or not np.isfinite(p).all():
+        _fail(f"variant {name}: non-finite or misshapen poses {p.shape}")
+    ate = ate_rmse(np.concatenate([seq["gt_pos"][:1], p]), seq["gt_pos"][: N + 1], align=False)
+    kf = int(res.is_keyframe.sum())
+    extra = f"; EVAL config {vp.eval_row}: {EVAL3[vp.eval_row]} m" if vp.eval_row else ""
+    print(f"variant {name}: {N} frames in {elapsed:.3f} s = {N / elapsed:.2f} frames/s "
+          f"(one run; {dict(**vp.frontend, **vp.backend, **vp.engine)}, "
+          f"{'GT scale' if vp.gt_scale else 'IMU scale, GT-free'}, sequence {vp.sequence}, "
+          f"K={eng.cfg.frontend.max_keypoints}, 480x752); ATE {ate:.4f} m beside the "
+          f"reference's {vp.ref_ate} m on the same run{extra}"
+          f"{'' if vp.bounded else ' (not bounded: the reference is over 0.5 m)'}; "
+          f"keyframes {kf}; vi_engaged {bool(state.vi_engaged)}; marg prior trace "
+          f"{float(torch.trace(state.marg_H)):.3g}; rescues {int(res.used_fallback.sum())}; "
+          f"launches {_nonzero(launches)}", flush=True)
+    _launches_equal(f"variant {name}", launches, vp.per_frame, N)
+    if vp.bounded and not ate < 0.5:
+        _fail(f"variant {name}: ATE {ate} >= 0.5 m (the reference's {vp.ref_ate})")
+    syncs = _host_syncs(lambda: eng.step(state, inputs.images[0], inputs.imu[0],
+                                         inputs.imu_dt[0], 0.1 if vp.gt_scale else -1.0))
+    print(f"variant {name}: host syncs inside one step: {len(syncs)} {sorted(set(syncs))}",
+          flush=True)
+    if syncs:
+        _fail(f"variant {name}: {len(syncs)} host syncs inside a step")
+    _variant_cpu_check(name, vp, eng, init, inputs)
+    return eng, state0, inputs
+
+
+def batch_vision_path(seqs) -> tuple:
+    """run_batch_scan with vision-only rotation (the KITTI mode: one level,
+    the essential solve), B sequences (seeds 0 to B - 1) x N frames; each
+    entry against its unbatched card run."""
+    from vislam_tpu_torch.engine import (
+        VIOEngine, make_batch_inputs, make_sequence_inputs, run_batch_scan, run_sequence_scan,
+        sequence_seed, stack_states,
+    )
+    from vislam_tpu_torch.eval import ate_rmse
+
+    B, N = BATCH_VISION
+    seqs = seqs[:B]
+    vp = VariantPath({}, N, frontend=dict(levels_used=1), engine=dict(vision_rotation=True))
+    eng = VIOEngine(seqs[0]["calib"], _variant_config(vp), device=DEV)
+
+    def init(s):
+        return eng.initialize(s["images"][0], q_wb0=s["gt_quat"][0], v_w0=s["gt_vel"][0],
+                              p_w0=s["gt_pos"][0])
+
+    per_seq = [make_sequence_inputs(s, 1, 1 + N, device=DEV) for s in seqs]
+    inputs = make_batch_inputs(per_seq)
+    kf0 = torch.as_tensor(np.stack([s["gt_pos"][0] for s in seqs]), dtype=torch.float32,
+                          device=DEV)
+    run_batch_scan(eng, stack_states([init(s) for s in seqs]), _first(inputs, 2), kf0)
+    state0 = stack_states([init(s) for s in seqs])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    final, res = run_batch_scan(eng, state0, inputs, kf0)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = read_launches()
+    p = res.p_wc.cpu().numpy()
+    if p.shape != (B, N, 3) or not np.isfinite(p).all():
+        _fail(f"variant batch_vision: non-finite or misshapen poses {p.shape}")
+    ates = [ate_rmse(np.concatenate([s["gt_pos"][:1], p[b]]), s["gt_pos"][: N + 1],
+                     align=False) for b, s in enumerate(seqs)]
+    print(f"variant batch_vision: {B} sequences x {N} frames in {elapsed:.3f} s = "
+          f"{B * N / elapsed:.2f} frames/s aggregate (one run; vision-only rotation, one "
+          f"level, K={eng.cfg.frontend.max_keypoints}, GT scale); ATE per entry "
+          f"{[round(a, 4) for a in ates]} m beside the reference's run_batch_scan "
+          f"{list(BATCH_VISION_REF_ATE)} (not bounded: over 0.5 m in both); keyframes per "
+          f"entry {res.is_keyframe.sum(dim=1).tolist()}; launches {_nonzero(launches)}",
+          flush=True)
+    print("variant batch_vision: cut from the batch paths' 8 x 60 to 4 x 20 in depth and "
+          "batch, to keep phase variants near 150 s", flush=True)
+    _launches_equal("variant batch_vision", launches, BATCH_VISION_STEP, N)
+    syncs = _host_syncs(lambda: run_batch_scan(eng, final, _first(inputs, 1), kf0))
+    print(f"variant batch_vision: host syncs inside one batched step: {len(syncs)} "
+          f"{sorted(set(syncs))}", flush=True)
+    if syncs:
+        _fail(f"variant batch_vision: {len(syncs)} host syncs inside a batched step")
+    # Each entry against its unbatched card run on the same draws. A frame
+    # whose essential solve has two near-equal-support solutions may take
+    # the other one from last-bit rounding (phase cli d): such frames
+    # (translation directions > 1e-3 apart at inliers within 3) are
+    # counted, at most 2, and positions are held up to an entry's first.
+    other, dp, kf_equal = 0, 0.0, True
+    for b, s in enumerate(seqs):
+        _, one = run_sequence_scan(eng, init(s), per_seq[b], seed=sequence_seed(0, b))
+        kf_equal &= torch.equal(one.is_keyframe, res.is_keyframe[b])
+        diff = (one.t_dir_cam - res.t_dir_cam[b]).abs().amax(-1).cpu() > 1e-3
+        if (diff & ((one.num_inliers - res.num_inliers[b]).abs().cpu() > 3)).any():
+            _fail(f"variant batch_vision: entry {b} solves differently at unequal support")
+        upto = int(torch.argmax(diff.int())) if diff.any() else N
+        other += int(diff.sum())
+        dp = max(dp, (one.p_wc[:upto] - res.p_wc[b, :upto]).abs().max().item() if upto else 0)
+    print(f"variant batch_vision: entries vs unbatched card runs over {N} frames: keyframes "
+          f"equal {kf_equal}, max |dp_wc| {dp:.3e} m (up to an entry's first frame on the other "
+          f"solve), frames on the other solve {other} of {B * N}", flush=True)
+    if not kf_equal or not dp <= 1e-3 or other > 2:
+        _fail("variant batch_vision: a batch entry disagrees with its unbatched run")
+    return eng, state0, inputs, kf0
+
+
+def variants_phase(seq, seqs) -> dict:
+    """Phase variants: each step option on the card (see the docstring);
+    returns what phase 7 traces."""
+    from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
+
+    by_name = {"seq0": seq, "seq3": make_synthetic_sequence(SyntheticConfig(
+        n_frames=60, n_landmarks=350, seed=1, trans_amp=(2.0, 1.4, 0.7),
+        rot_amp=(0.12, 0.15, 0.3)))}
+    out = {}
+    for name in VARIANT_PATHS:
+        t0 = time.perf_counter()
+        out[name] = variant_path(name, by_name)
+        _phase(f"variants {name}", t0)
+    t0 = time.perf_counter()
+    out["batch_vision"] = batch_vision_path(seqs)
+    _phase("variants batch_vision", t0)
+    return out
+
+
+# The SLAM-mode variant paths are not traced: one frame's trace of the
+# slam path took 21 s (PR 8 run 3) and their launches are its (~23k).
+TRACE_VARIANTS = ("oriented", "gated", "photometric", "batch_vision")
+
+
+def trace_variants(ctx) -> None:
+    """One frame of each TRACE_VARIANTS path (one batched step of
+    batch_vision) under torch.profiler: launches per frame, device busy
+    share."""
+    from vislam_tpu_torch.engine import run_batch_scan, run_sequence_scan
+
+    for name in TRACE_VARIANTS:
+        c = ctx[name]
+        if name == "batch_vision":
+            eng, state0, inputs, kf0 = c
+            _trace(f"variant {name}", 1,
+                   lambda: run_batch_scan(eng, state0, _first(inputs, 1), kf0), "batched step")
+        else:
+            eng, state0, inputs = c
+            _trace(f"variant {name}", 1,
+                   lambda: run_sequence_scan(eng, state0, _first_frames(inputs, 1)), "frame")
+
+
 def _phase(name, t0) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2217,6 +2557,9 @@ def main() -> None:
     t0 = time.perf_counter()
     map_phase()
     _phase("map", t0)
+    t0 = time.perf_counter()
+    variants = variants_phase(seq, seqs)
+    _phase("variants", t0)
     # The order of what follows: see the module's docstring.
     t0 = time.perf_counter()
     for name, ctx in profiled.items():
@@ -2234,6 +2577,9 @@ def main() -> None:
         t0 = time.perf_counter()
         trace_batch_path(name, *ctx)
         _phase(f"trace {name}", t0)
+    t0 = time.perf_counter()
+    trace_variants(variants)
+    _phase("trace variants", t0)
     for row in rows:
         row["launches"] = launches[row_path[row["name"]]][row["counter"]]
 

@@ -332,10 +332,6 @@ def test_cli_relocalizes_with_the_head_image(tmp_path, monkeypatch):
 
 REFUSED = [
     (["--dist-ba", "8"], "queue 1 item 6"),
-    (["--photometric"], "queue 1 item 4"),
-    (["--oriented"], "queue 1 item 4"),
-    (["--gauge", "marg"], "queue 1 item 7"),
-    (["--gauge", "oldest2"], "queue 1 item 7"),
     (["--plot", "p"], "Not to port"),
     (["--live-viz", "p"], "Not to port"),
 ]

@@ -81,7 +81,8 @@ def test_metrics_match_reference(rng):
 
 
 def test_port_imports_neither_jax_nor_reference(tmp_path):
-    """Import every module of the port, the map backend's included, in a
+    """Import every module of the port, the map backend's and the step
+    options' (photometric refine, adversarial imagery) included, in a
     fresh interpreter in which `jax`, `vislam_tpu`, `cv2` and `ml_dtypes`
     cannot be imported at all (the card's machine has none of them)."""
     script = textwrap.dedent("""
@@ -104,10 +105,11 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
                if m.split(".")[0] in ("jax", "jaxlib", "vislam_tpu", "cv2", "ml_dtypes")]
         assert not bad, bad
         assert len(names) >= 20, names
-        # The map backend's modules among them.
+        # The map backend's modules and the step options' among them.
         for m in ("lie.se3", "lie.sim3", "backend.pose_graph", "backend.sim3_graph",
                   "backend.pnp", "backend.loop", "backend.triangulate",
-                  "backend.trajectory_opt", "backend.reloc", "backend.mapio"):
+                  "backend.trajectory_opt", "backend.reloc", "backend.mapio",
+                  "backend.photometric", "data.adversarial"):
             assert "vislam_tpu_torch." + m in names, m
         print("OK", len(names))
     """)

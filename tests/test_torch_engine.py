@@ -229,7 +229,7 @@ def test_run_sequence_scan_equals_step_loop(seq):
     assert res_s.is_keyframe.any()
 
 
-UNSUPPORTED = [
+STEP_OPTIONS = [
     ("engine", "photometric_refine", True),
     ("backend", "online_gauge", "marg"),
     ("backend", "online_gauge", "oldest2"),
@@ -238,13 +238,18 @@ UNSUPPORTED = [
 ]
 
 
-@pytest.mark.parametrize("section,field,value", UNSUPPORTED)
-def test_unsupported_configurations_raise(seq, section, field, value):
+@pytest.mark.parametrize("section,field,value", STEP_OPTIONS)
+def test_step_options_construct_and_step(seq, section, field, value):
+    """The settings the port refused until it ported them: each constructs
+    and steps 3 frames with finite poses (each is held against the
+    reference in tests/test_torch_variants_*.py)."""
     base = tconfig.SystemConfig()
     cfg = dataclasses.replace(base, **{section: dataclasses.replace(
         getattr(base, section), **{field: value})})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(seq["calib"], cfg, device="cpu")
+    eng = TEngine(seq["calib"], cfg, device="cpu")
+    out, state, _ = _run(eng, seq, port=True, n_frames=4)
+    assert getattr(getattr(eng.cfg, section), field) == value
+    assert np.isfinite([r["p"] for r in out]).all() and int(state.frame_idx) == 3
 
 
 FRONTENDS = {

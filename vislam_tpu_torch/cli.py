@@ -33,9 +33,10 @@ head image on success, as the divergence guard does. After the run,
 Sim(3)) pose graph and --save-map writes the archive. Without these flags
 the loop does nothing more per frame.
 
-Flags of modules the port does not have yet exit with status 2 and name
-their ROADMAP.md item: --dist-ba, --photometric, --oriented, --gauge
-marg|oldest2, --plot, --live-viz.
+Every step option of the reference's CLI runs: --oriented descriptors,
+--photometric refine, --gauge ends|oldest2|marg of the window BA. Flags
+of modules the port does not have yet exit with status 2 and name their
+ROADMAP.md item: --dist-ba, --plot, --live-viz.
 """
 
 from __future__ import annotations
@@ -50,8 +51,6 @@ import numpy as np
 import torch
 
 _PARALLEL = "queue 1 item 6 (parallel/)"
-_FRONTEND = "queue 1 item 4 (frontend variants)"
-_GAUGES = "queue 1 item 7 (the marg and oldest2 gauges)"
 _VIZ = "'Not to port' (viz/)"
 
 # Frames whose packed results the host loop fetches in one copy.
@@ -62,9 +61,6 @@ def _rejected(args) -> list:
     """(flag, ROADMAP item) of every given flag whose module is not ported."""
     flags = [
         (args.dist_ba, "--dist-ba", _PARALLEL),
-        (args.photometric, "--photometric", _FRONTEND),
-        (args.oriented, "--oriented", _FRONTEND),
-        (args.gauge in ("marg", "oldest2"), f"--gauge {args.gauge}", _GAUGES),
         (args.plot, "--plot", _VIZ),
         (args.live_viz, "--live-viz", _VIZ),
     ]
@@ -106,7 +102,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--vi-ba", action="store_true",
                     help="IMU factors in the window BA (implies --ba)")
     ap.add_argument("--gauge", default=None, choices=["marg", "ends", "oldest2"],
-                    help="window BA gauge (the port runs 'ends')")
+                    help="window BA gauge: ends (default), oldest2 (slot 0 + the widest "
+                         "baseline; with IMU factors slot 0), marg (marginalization prior)")
     ap.add_argument("--detector", default="shi_tomasi",
                     choices=["shi_tomasi", "harris", "dog", "hessian", "fast"],
                     help="corner/blob response family")
@@ -135,10 +132,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--load-map", default=None, metavar="PATH.npz",
                     help="preload a saved keyframe map: --reloc localizes against it "
                          "from frame one and --loop-correct sees its keyframes too")
+    ap.add_argument("--photometric", action="store_true",
+                    help="photometric (direct) refinement of each frame's relative pose")
+    ap.add_argument("--oriented", action="store_true",
+                    help="rotation-invariant descriptors (sampled in each keypoint's "
+                         "orientation frame)")
     # Flags of modules not ported yet: parsed, then refused (_rejected).
     ap.add_argument("--dist-ba", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--photometric", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--oriented", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--plot", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--live-viz", default=None, help=argparse.SUPPRESS)
     return ap
@@ -172,11 +172,16 @@ def main(argv=None, report: dict | None = None) -> int:
 
 
 def _with_frontend(args, cfg, use_vi_ba):
-    """The detector / descriptor / scale-space and VI-BA choices on cfg."""
-    if (args.detector, args.descriptor, args.scale_space) != ("shi_tomasi", "sift", "gaussian"):
+    """The detector / descriptor / scale-space / orientation, photometric
+    refine, VI-BA and gauge choices on cfg."""
+    if (args.detector, args.descriptor, args.oriented, args.scale_space) != (
+            "shi_tomasi", "sift", False, "gaussian"):
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
             cfg.frontend, detector=args.detector, descriptor=args.descriptor,
-            scale_space=args.scale_space))
+            oriented=args.oriented, scale_space=args.scale_space))
+    if args.photometric:
+        cfg = dataclasses.replace(cfg, engine=dataclasses.replace(
+            cfg.engine, photometric_refine=True))
     backend = {}
     if use_vi_ba:
         backend["vi_factors"] = True

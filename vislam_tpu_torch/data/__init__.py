@@ -1,6 +1,12 @@
-"""Dataset readers, the PNG codec, the prefetching loader and synthetic
-sequences (port of vislam_tpu.data)."""
+"""Dataset readers, the PNG codec, the prefetching loader, synthetic
+sequences and adversarial imagery (port of vislam_tpu.data)."""
 
+from vislam_tpu_torch.data.adversarial import (
+    AdversarialConfig,
+    AdversarialScene,
+    make_adversarial_sequence,
+    presets,
+)
 from vislam_tpu_torch.data.euroc import EurocDataset, FrameWindow
 from vislam_tpu_torch.data.kitti import KittiDataset
 from vislam_tpu_torch.data.loader import PrefetchLoader

@@ -29,6 +29,7 @@ from vislam_tpu_torch.engine.engine import (
     require_device,
 )
 from vislam_tpu_torch.engine.state import EngineState
+from vislam_tpu_torch.frontend.essential import gumbel_hypotheses
 from vislam_tpu_torch.frontend.pose import gumbel_noise
 
 
@@ -154,11 +155,14 @@ def batch_noises(eng: VIOEngine, seeds: Sequence[int], n: int, M: int):
     """Frame n's RANSAC draws of every sequence of a batch, (B, 2, H, M)
     each for the main and the rescue solve: sequence b's frame generator
     (`frame_generator(seeds[b], n)`), main first, then rescue, as the
-    unbatched step draws them. These draws are the only per-sequence work
-    of a batched frame: vmap refuses a random draw inside the map, so they
-    are made before it, B generators a frame."""
+    unbatched step draws them; with vision-only rotation the (B, H, 8, M)
+    essential hypotheses and no rescue draw (None). These draws are the
+    only per-sequence work of a batched frame: vmap refuses a random draw
+    inside the map, so they are made before it, B generators a frame."""
     H = eng.cfg.backend.ransac_hyps
     gens = [frame_generator(s, n, eng.device) for s in seeds]
+    if eng.cfg.engine.vision_rotation:
+        return torch.stack([gumbel_hypotheses(g, H, M, eng.device) for g in gens]), None
     draws = [(gumbel_noise(g, H, M, eng.device), gumbel_noise(g, H, M, eng.device))
              for g in gens]
     return torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
@@ -180,18 +184,18 @@ def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceI
     Sequence b draws frame n's hypotheses from
     `frame_generator(sequence_seed(seed, b), n)`, so entry b equals
     run_sequence_scan(..., seed=sequence_seed(seed, b)); `noises[b][n] =
-    (noise, noise_rescue)` overrides them (stacked once, before the frames).
+    (noise, noise_rescue)` overrides them (stacked once, before the frames;
+    with vision-only rotation noise is (H, 8, M) and noise_rescue None).
     Returns (final state (B, ...), FrameResult (B, N, ...)).
     """
-    if eng.cfg.engine.vision_rotation:
-        raise NotImplementedError("run_batch_scan with engine.vision_rotation is not wired "
-                                  "(ROADMAP.md queue 1, frontend variants)")
     B, N = inputs_batch.images.shape[:2]
     M = states0.kf_feat.uv.shape[-2]
     kf_gt_pos = torch.as_tensor(kf_gt_pos0, dtype=torch.float32).to(eng.device)
+    rescue = not eng.cfg.engine.vision_rotation
     if noises is not None:
         given = [torch.stack([torch.stack([nz[j] for nz in row]) for row in noises], 1)
-                 for j in (0, 1)]          # (N, B, 2, H, M) each
+                 if j == 0 or rescue else [None] * N
+                 for j in (0, 1)]          # (N, B, ...) each
     seeds = [sequence_seed(seed, b) for b in range(B)]
     gt_scale = inputs_batch.use_gt_scale
 
@@ -199,7 +203,8 @@ def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceI
         return eng._step(state, image, imu, imu_dt, gt_norm if gt_scale else -1.0, None,
                          noise, noise_rescue)
 
-    batched = torch.func.vmap(step, in_dims=(0, 0, 0, 0, 0 if gt_scale else None, 0, 0))
+    batched = torch.func.vmap(step, in_dims=(0, 0, 0, 0, 0 if gt_scale else None, 0,
+                                             0 if rescue else None))
     state, results = states0, []
     for n in range(N):
         noise, noise_rescue = batch_noises(eng, seeds, n, M) if noises is None \

@@ -1,24 +1,29 @@
 """The VIO engine: the per-frame step (port of `vislam_tpu/engine/engine.py`:
 GT scale or GT-free IMU scale, open loop or SLAM mode, IMU or vision-only
-rotation, any frontend but the oriented and always-gated ones), and the
-host loop's API (`step_pipelined`, `step_host`, the packed result).
+rotation, every frontend, upright or oriented, ungated or always gated),
+and the host loop's API (`step_pipelined`, `step_host`, the packed result).
 
 One frame: Madgwick attitude + IMU preintegration, feature extraction,
-descriptor match against the keyframe, IMU-rotation-compensated translation
-RANSAC and its sign, the guided rescue re-match, disparity, gyro/accel bias
-recalibration, the shadow depth chain, pose composition, the keyframe
-policy and the window promotion; GT-free, the linear VI alignment of the
-window (`engine/bootstrap.py`); in SLAM mode (`backend.refine_in_step`),
-the window (VI-)BA (`engine/refine.py`).
+descriptor match against the keyframe (with `frontend.guided_gate_px`,
+inside the IMU-rotation-predicted disc), IMU-rotation-compensated
+translation RANSAC and its sign, the guided rescue re-match (ungated runs),
+disparity, gyro/accel bias recalibration, the shadow depth chain, the
+photometric refine of the relative pose (`engine.photometric_refine`,
+`backend/photometric.py`), pose composition, the keyframe policy and the
+window promotion; GT-free, the linear VI alignment of the window
+(`engine/bootstrap.py`); in SLAM mode (`backend.refine_in_step`), the
+window (VI-)BA (`engine/refine.py`) under any of its gauges.
 
 No host sync inside a frame: every `lax.cond` of the reference on a device
 value (the rescue, the promotion, the alignment, the in-step refine)
 computes both branches and selects with `torch.where`, and no value on the
 device steers Python control flow. So the rescue's gated re-match and
-RANSAC, the alignment and the window BA run on every frame.
+RANSAC, the alignment and the window BA run on every frame. Branches the
+reference takes on the static config (the always-gated match, which has
+no rescue; the photometric refine) are Python branches here too.
 
-Configurations this port does not cover yet raise NotImplementedError at
-construction (see `_check_supported`).
+An unknown window-BA gauge name raises ValueError at construction
+(`engine/refine.py::check_gauge`).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from vislam_tpu_torch import lie
+from vislam_tpu_torch.backend.photometric import photometric_align
 from vislam_tpu_torch.backend.triangulate import triangulate_midpoint
 from vislam_tpu_torch.calib.camera_model import CameraCalib, unproject_pixels
 from vislam_tpu_torch.engine.bootstrap import vi_align_window
@@ -39,6 +45,7 @@ from vislam_tpu_torch.frontend.descriptor import DescriptorGeometry
 from vislam_tpu_torch.frontend.essential import gumbel_hypotheses, ransac_essential
 from vislam_tpu_torch.frontend.features import Features, extract_features
 from vislam_tpu_torch.frontend.match import match_descriptors
+from vislam_tpu_torch.frontend.pyramid import build_pyramid
 from vislam_tpu_torch.frontend.pose import (
     gumbel_noise,
     ransac_translation,
@@ -143,21 +150,6 @@ def frame_generator(seed: int, idx: int, device) -> torch.Generator:
     return g
 
 
-def _check_supported(cfg: SystemConfig) -> None:
-    fe, be, en = cfg.frontend, cfg.backend, cfg.engine
-    unsupported = [
-        (en.photometric_refine, "engine.photometric_refine",
-         "queue 1, frontend variants (photometric refine)"),
-        (fe.oriented, "frontend.oriented", "queue 1, frontend variants (oriented SIFT)"),
-        (fe.guided_gate_px > 0, "frontend.guided_gate_px",
-         "queue 1, frontend variants (always-on guided matching)"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-    check_gauge(be.online_gauge)
-
-
 def require_device(device) -> torch.device:
     """torch.device(device), refusing a CUDA device where there is none
     (nothing falls back to the CPU)."""
@@ -176,7 +168,7 @@ class VIOEngine:
 
     def __init__(self, calib: CameraCalib, cfg: SystemConfig = SystemConfig(),
                  seed: int = 0, *, device="cuda"):
-        _check_supported(cfg)
+        check_gauge(cfg.backend.online_gauge)
         self.device = require_device(device)
         self.calib = calib
         self.cfg = cfg
@@ -340,11 +332,28 @@ class VIOEngine:
         R_wc_j_imu = R_wb_j @ R_bc
         R_ji_imu = R_wc_j_imu.T @ state.kf_R_wc
 
+        def predict_uv(uv):
+            """Keyframe pixels warped by the IMU rotation (the infinite-depth
+            homography K R K^-1), |z| <= 1e-6 clamped."""
+            x = (uv[:, 0] - cx) / fx
+            y = (uv[:, 1] - cy) / fy
+            w = torch.stack([x, y, torch.ones_like(x)], -1) @ R_ji_imu.T
+            wz = torch.where(w[:, 2].abs() > 1e-6, w[:, 2], torch.full_like(w[:, 2], 1e-6))
+            return torch.stack([w[:, 0] / wz * fx + cx, w[:, 1] / wz * fy + cy], -1)
+
         # ---------------- frontend
         feat = extract_features(image, fe, self.geom)
         Kb = feat.uv.shape[0]
-        m = match_descriptors(kf.desc, kf.mask, feat.desc, feat.mask,
-                              ratio=fe.ratio_thresh, mutual=fe.mutual_check)
+        if fe.guided_gate_px > 0:
+            # Always-on guided matching: candidates only inside the disc
+            # around each keyframe keypoint's IMU-rotation prediction.
+            m = match_descriptors(kf.desc, kf.mask, feat.desc, feat.mask,
+                                  ratio=fe.ratio_thresh, mutual=fe.mutual_check,
+                                  uv_pred=predict_uv(kf.uv), uv_b=feat.uv,
+                                  gate_radius=fe.guided_gate_px)
+        else:
+            m = match_descriptors(kf.desc, kf.mask, feat.desc, feat.mask,
+                                  ratio=fe.ratio_thresh, mutual=fe.mutual_check)
         fine_only = fe.solver_fine_only and fe.levels_used > 1
         uv_i = kf.uv
         uv_j = feat.uv[torch.clamp(m.idx_b, 0, Kb - 1).long()]
@@ -400,8 +409,9 @@ class VIOEngine:
             est_inliers = est.num_inliers
             est_inlier_mask = est.inlier_mask
 
-        if fe.guided_fallback_px > 0 and not vision:
-            # Rescue: re-match inside the IMU-rotation-predicted disc and
+        if fe.guided_fallback_px > 0 and fe.guided_gate_px == 0 and not vision:
+            # Rescue (ungated runs only; an always-gated match has nothing to
+            # rescue): re-match inside the IMU-rotation-predicted disc and
             # re-solve; taken when the ungated solve is catastrophic (inlier
             # floor, or a direction far from the IMU's while the IMU says
             # the camera moved) AND the gated solve wins decisively. Both
@@ -413,14 +423,9 @@ class VIOEngine:
             triggered = ((est_inliers < fe.fallback_trigger_inliers) | dir_trig) \
                 & (torch.sum(feat.mask) > 0)
 
-            x = (uv_i[:, 0] - cx) / fx
-            y = (uv_i[:, 1] - cy) / fy
-            w = torch.stack([x, y, torch.ones_like(x)], -1) @ R_ji_imu.T
-            wz = torch.where(w[:, 2].abs() > 1e-6, w[:, 2], torch.full_like(w[:, 2], 1e-6))
-            uv_pred = torch.stack([w[:, 0] / wz * fx + cx, w[:, 1] / wz * fy + cy], -1)
             m_g = match_descriptors(kf.desc, kf.mask, feat.desc, feat.mask,
                                     ratio=fe.ratio_thresh, mutual=fe.mutual_check,
-                                    uv_pred=uv_pred, uv_b=feat.uv,
+                                    uv_pred=predict_uv(uv_i), uv_b=feat.uv,
                                     gate_radius=fe.guided_fallback_px)
             uv_j_g = feat.uv[torch.clamp(m_g.idx_b, 0, Kb - 1).long()]
             rj_g = unit_rays(uv_j_g)
@@ -516,7 +521,28 @@ class VIOEngine:
             s_fallback = torch.where(state.shadow_scale > 0.0, state.shadow_scale, s_unseeded)
             s_shadow = torch.where(s_chain_ok, s_med, s_fallback)
         # GT or IMU scale; frame-j coords: X_j = R_ji X_i + t_ji
-        t_ji = t_dir * (imu_t_norm if gt_free else gt_t_norm)
+        scale = imu_t_norm if gt_free else gt_t_norm
+        t_ji = t_dir * scale
+        if en.photometric_refine:
+            # Direct refinement of (R_ji, t_ji) after RANSAC: depths of the
+            # triangulated inliers, coarse-to-fine alignment of the
+            # keyframe's pyramid to this frame's, guarded acceptance; the
+            # scale stays pinned and the refined direction is taken.
+            _, d_i, d_j, gap = triangulate_midpoint(rays_i, rays_j, R_ji, t_ji)
+            pts_ok = (est_inlier_mask & (d_i > be.min_depth) & (d_i < be.max_depth)
+                      & (d_j > be.min_depth) & (gap < 0.05 * d_i))
+            pres = photometric_align(
+                build_pyramid(state.kf_image, fe.num_levels), build_pyramid(image, fe.num_levels),
+                uv_i, d_i * rays_i[:, 2], pts_ok, R_ji, t_ji, fx, fy, cx, cy,
+                levels=(2, 1, 0), iters_per_level=5)
+            drot = torch.linalg.vector_norm(lie.so3_log(pres.R @ R_ji.T))
+            den = torch.clamp(scale, min=1e-6) if torch.is_tensor(scale) else max(scale, 1e-6)
+            dt_rel = torch.linalg.vector_norm(pres.t - t_ji) / den
+            ok_ref = (torch.isfinite(pres.t).all() & torch.isfinite(pres.R).all()
+                      & (pres.num_valid >= 30) & (drot < 0.05) & (dt_rel < 0.5))
+            R_ji = torch.where(ok_ref, lie.orthonormalize(pres.R), R_ji)
+            t_ref_dir = pres.t / torch.clamp(torch.linalg.vector_norm(pres.t), min=1e-9)
+            t_ji = torch.where(ok_ref, t_ref_dir * scale, t_ji)
 
         # ---------------- relative pose -> world pose
         R_cw_i = state.kf_R_wc.T
@@ -653,7 +679,8 @@ class VIOEngine:
             kf_R_wc=on_kf(R_wc_j, state.kf_R_wc),
             kf_p_wc=on_kf(p_wc_j, state.kf_p_wc),
             kf_feat=new_kf_feat,
-            kf_image=state.kf_image,   # read only by the photometric refine
+            # Read only by the photometric refine: written only with it on.
+            kf_image=on_kf(image, state.kf_image) if en.photometric_refine else state.kf_image,
             window=new_window,
             frame_idx=state.frame_idx + 1,
             kf_count=state.kf_count + is_kf.to(torch.int32),

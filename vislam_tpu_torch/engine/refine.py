@@ -1,5 +1,6 @@
 """Sliding-window refinement: track association, triangulation and the
-window (VI-)BA (port of `vislam_tpu/engine/refine.py`, the `ends` gauge).
+window (VI-)BA (port of `vislam_tpu/engine/refine.py`, every gauge of
+`backend.online_gauge`: `ends`, `oldest2`, `marg`).
 
 Tracks are anchored at the newest keyframe of the window: its K keypoint
 rows are the track slots, and every window keyframe is matched directly
@@ -32,14 +33,14 @@ from vislam_tpu_torch.inertial.preintegration import Preintegrated, bias_correct
 from vislam_tpu_torch.lie.so3 import orthonormalize, so3_exp, so3_log
 from vislam_tpu_torch.utils.config import SystemConfig
 
-GAUGES = ("ends",)
+GAUGES = ("ends", "oldest2", "marg")
 
 
 def check_gauge(gauge: str) -> None:
+    """Refuse an unknown gauge name (the reference takes any other name as
+    `ends` in vision-only windows and as slot 0 fixed in VI ones)."""
     if gauge not in GAUGES:
-        raise NotImplementedError(
-            f"backend.online_gauge={gauge!r} is not ported yet (ROADMAP.md queue 1, "
-            "not to port: the marg/oldest2 gauges, until a slice needs them)")
+        raise ValueError(f"backend.online_gauge={gauge!r} is not a gauge: one of {GAUGES}")
 
 
 def _anchor(window):
@@ -157,14 +158,28 @@ def _cap(v, limit, floor=1e-9):
                            max=1.0)
 
 
+def _widest_baseline_slot(win, W_idx, anchor_slot):
+    """The valid slot farthest from slot 0, neither slot 0 nor the anchor
+    (the first on a tie; slot 0 where there is none)."""
+    p_w = -torch.einsum("kji,kj->ki", win.R_cw, win.t_cw)
+    d0 = torch.linalg.vector_norm(p_w - p_w[0], dim=-1)
+    cand = win.valid & (W_idx != 0) & (W_idx != anchor_slot)
+    return torch.argmax(torch.where(cand, d0, torch.full_like(d0, -1.0)))
+
+
 def window_ba(state: EngineState, cfg: SystemConfig, ba_state: BAState, prob: BAProblem,
               R_bc=None):
-    """The window BA of refine_window on a built problem, `ends` gauge
-    (oldest and newest pose fixed; slot 1 too without IMU factors).
-    Returns (refined BAState, velocities, bias_g, bias_a, info): the
-    velocities are the window's own and the biases None where they are not
-    estimated; info holds the LM's final and initial cost ("iters_run"
-    with IMU factors)."""
+    """The window BA of refine_window on a built problem, under
+    `backend.online_gauge`. Vision only: `ends` fixes slots 0, 1 and the
+    newest (so does `marg`, a VI gauge), `oldest2` slot 0 and the
+    widest-baseline slot. With IMU factors: `ends` fixes slot 0 and the
+    newest, `oldest2` slot 0, `marg` slot 0 until the marginalization
+    prior is active and no pose after that (the prior on slot 0 anchors the
+    window; its pending successor is computed). Returns (refined BAState,
+    velocities, bias_g, bias_a, info): the velocities are the window's own
+    and the biases None where they are not estimated; info holds the LM's
+    final and initial cost ("iters_run" with IMU factors; "marg_H",
+    "marg_lin" under `marg`)."""
     be = cfg.backend
     check_gauge(be.online_gauge)
     win = state.window
@@ -174,9 +189,12 @@ def window_ba(state: EngineState, cfg: SystemConfig, ba_state: BAState, prob: BA
     W_idx = torch.arange(W, device=dev)
     anchor_slot = _anchor(win)[0]
     if not be.vi_factors:
+        if be.online_gauge == "oldest2":
+            fixed = (W_idx == 0) | (W_idx == _widest_baseline_slot(win, W_idx, anchor_slot))
+        else:
+            fixed = (W_idx < 2) | (W_idx == anchor_slot)
         refined, info = bundle_adjust(ba_state, prob, iters=be.lm_iters, lam0=be.lm_lambda0,
-                                      huber_delta=be.huber_delta,
-                                      fixed_mask=(W_idx < 2) | (W_idx == anchor_slot))
+                                      huber_delta=be.huber_delta, fixed_mask=fixed)
         return refined, win.v_w, None, None, info
     bias_kw = dict(J_R_bg=win.imu_J_R_bg, J_v_bg=win.imu_J_v_bg, J_v_ba=win.imu_J_v_ba,
                    J_p_bg=win.imu_J_p_bg, J_p_ba=win.imu_J_p_ba, bg_ref=win.imu_bg_ref,
@@ -185,9 +203,19 @@ def window_ba(state: EngineState, cfg: SystemConfig, ba_state: BAState, prob: BA
                      valid=win.imu_valid, **bias_kw)
     g_w = torch.eye(3, **f32)[2] * -cfg.engine.gravity
     Rbc = torch.eye(3, **f32) if R_bc is None else R_bc
+    fixed = W_idx == 0
+    marg = {}
+    if be.online_gauge == "ends":
+        fixed = fixed | (W_idx == anchor_slot)
+    elif be.online_gauge == "marg":
+        prior_active = torch.trace(state.marg_H) > 1e-6
+        fixed = fixed & ~prior_active
+        marg = dict(prior_H=state.marg_H,
+                    prior_lin=(state.marg_R_cw, state.marg_t_cw, state.marg_v),
+                    compute_marginal=True)
     common = dict(iters=be.lm_iters, lam0=be.lm_lambda0, huber_delta=be.huber_delta,
                   w_rot=be.vi_w_rot, w_vel=be.vi_w_vel, w_pos=be.vi_w_pos,
-                  fixed_mask=(W_idx == 0) | (W_idx == anchor_slot))
+                  fixed_mask=fixed, **marg)
     if be.estimate_bias:
         (refined, v, bg, ba), info = vi_bundle_adjust(
             ba_state, prob, win.v_w, fac, g_w, Rbc, bg0=state.bias_g, ba0=state.bias_a,
@@ -256,6 +284,19 @@ def refine_window(state: EngineState, cfg: SystemConfig, fx: float, fy: float,
                 J_dp_ba=state.kf_pre_J_p_ba), dbg, dba)
             updates = dict(bias_g=state.bias_g + dbg, bias_a=state.bias_a + dba,
                            kf_pre_dR=acc.dR, kf_pre_dv=acc.dv, kf_pre_dp=acc.dp)
+        if be.online_gauge == "marg":
+            # The pending prior for the next eviction, discounted and
+            # trace-capped, kept only where the BA was accepted.
+            mH = info["marg_H"] * be.marg_discount
+            tr = torch.trace(mH)
+            mH = mH * torch.clamp(be.marg_max_trace / torch.clamp(tr, min=1e-9), max=1.0)
+            m_ok = good & torch.isfinite(mH).all() & (tr > 0.0)
+            mR, mt, mv = info["marg_lin"]
+            updates.update(
+                marg_pend_H=torch.where(m_ok, mH, state.marg_pend_H),
+                marg_pend_R_cw=torch.where(m_ok, mR, state.marg_pend_R_cw),
+                marg_pend_t_cw=torch.where(m_ok, mt, state.marg_pend_t_cw),
+                marg_pend_v=torch.where(m_ok, mv, state.marg_pend_v))
     return state._replace(
         window=new_win,
         **updates,

@@ -1,11 +1,14 @@
 """SIFT-style descriptors, 4x4 spatial x 8 orientation bins = 128-D (port
-of `vislam_tpu/frontend/descriptor.py`, upright path).
+of `vislam_tpu/frontend/descriptor.py`, upright and oriented).
 
 One (K, 32, 32) patch per keypoint, blur + Scharr in patch space, bilinear
-sampling of a 16x16 grid by separable one-hot contractions, a gather-free
-orientation soft-assignment and one histogram contraction against the
-static spatial-weight matrix; L2-normalise -> clip 0.2 -> renormalise.
-All contractions run in float32 (TF32 is off, see the package docstring).
+sampling of a 16x16 grid by one-hot contractions (upright: separable over
+the grid's rows and columns; oriented: the grid rotated by the keypoint's
+angle, 256 samples, then the gradients rotated into the keypoint frame), a
+gather-free orientation soft-assignment and one histogram contraction
+against the static spatial-weight matrix; L2-normalise -> clip 0.2 ->
+renormalise. All contractions run in float32 (TF32 is off, see the package
+docstring).
 """
 
 from __future__ import annotations
@@ -62,13 +65,15 @@ _OFFS, _WSP = _static_geometry(patch_scale=1.5)
 
 class DescriptorGeometry:
     """The static sampling geometry as tensors on one device: per-axis grid
-    offsets (16,) and the (S, 16) spatial-weight matrix of this descriptor,
+    offsets (16,), the (S, 2) offsets of the whole grid (rotated for
+    oriented descriptors), the (S, 16) spatial-weight matrix of this descriptor,
     and the (256, 2, 2) BRIEF test pattern (`binary_desc.PATTERN`). Built
     once per engine so the per-frame step uploads nothing."""
 
     def __init__(self, device):
         self.dx = torch.as_tensor(_OFFS[:_GRID, 0].copy(), device=device)
         self.dy = torch.as_tensor(_OFFS[::_GRID, 1].copy(), device=device)
+        self.offs = torch.as_tensor(_OFFS, device=device)
         self.wsp = torch.as_tensor(_WSP, device=device)
         self.brief = torch.as_tensor(PATTERN, device=device)
 
@@ -107,11 +112,25 @@ def _patch_gradients(patches, smooth_sigma: float):
     return gx, gy
 
 
-def describe_keypoints(img, uv, geom: DescriptorGeometry, smooth_sigma: float = 0.6):
-    """Upright descriptors of K keypoints on one level.
+def sample_bilinear_patches(fields, lu, lv, lo: float, hi: float):
+    """Bilinear samples of (K, P, P, C) patch fields at local coords lu, lv
+    (K, S), clipped to [lo, hi]: per axis a 2-nonzero weight row (K, S, P),
+    then two batched contractions (no gather per sample). Returns (K, S, C)."""
+    iota = torch.arange(fields.shape[1], dtype=torch.float32, device=fields.device)
+    av = torch.clamp(1.0 - torch.abs(torch.clamp(lv, lo, hi)[..., None] - iota), min=0.0)
+    au = torch.clamp(1.0 - torch.abs(torch.clamp(lu, lo, hi)[..., None] - iota), min=0.0)
+    t1 = torch.einsum("ksp,kpqc->ksqc", av, fields)    # (K, S, P, C)
+    return torch.einsum("ksq,ksqc->ksc", au, t1)
 
-    img: (H, W) float32 level; uv: (K, 2) level-local pixel coords.
-    Returns (K, 128) float32 L2-normalised descriptors.
+
+def describe_keypoints(img, uv, geom: DescriptorGeometry, angle=None,
+                       smooth_sigma: float = 0.6):
+    """Descriptors of K keypoints on one level.
+
+    img: (H, W) float32 level; uv: (K, 2) level-local pixel coords; angle:
+    (K,) radians, or None for upright descriptors (the axis-aligned grid,
+    the default frontend's). Returns (K, 128) float32 L2-normalised
+    descriptors.
     """
     P = _PATCH
     K = uv.shape[0]
@@ -121,17 +140,30 @@ def describe_keypoints(img, uv, geom: DescriptorGeometry, smooth_sigma: float = 
     lo, hi = m, P - 1 - m - 1e-3
     fields = torch.stack([gxp, gyp], dim=-1)  # (K, P, P, 2)
 
-    # Axis-aligned grid: the bilinear weights factorize over grid rows and
-    # columns, (K, 16, P) each.
-    lv = torch.clamp(uv[:, 1:2] + geom.dy[None, :] - iv0[:, None].float(), lo, hi)
-    lu = torch.clamp(uv[:, 0:1] + geom.dx[None, :] - iu0[:, None].float(), lo, hi)
-    iota = torch.arange(P, dtype=torch.float32, device=uv.device)
-    A = torch.clamp(1.0 - torch.abs(lv[..., None] - iota), min=0.0)  # (K,16,P)
-    B = torch.clamp(1.0 - torch.abs(lu[..., None] - iota), min=0.0)
-    t1 = torch.einsum("kip,kpqc->kiqc", A, fields)     # (K,16,P,2)
-    samp = torch.einsum("kjq,kiqc->kijc", B, t1)       # (K,16,16,2)
-    gxr = samp[..., 0].reshape(K, _S)
-    gyr = samp[..., 1].reshape(K, _S)
+    if angle is None:
+        # Axis-aligned grid: the bilinear weights factorize over grid rows
+        # and columns, (K, 16, P) each.
+        lv = torch.clamp(uv[:, 1:2] + geom.dy[None, :] - iv0[:, None].float(), lo, hi)
+        lu = torch.clamp(uv[:, 0:1] + geom.dx[None, :] - iu0[:, None].float(), lo, hi)
+        iota = torch.arange(P, dtype=torch.float32, device=uv.device)
+        A = torch.clamp(1.0 - torch.abs(lv[..., None] - iota), min=0.0)  # (K,16,P)
+        B = torch.clamp(1.0 - torch.abs(lu[..., None] - iota), min=0.0)
+        t1 = torch.einsum("kip,kpqc->kiqc", A, fields)     # (K,16,P,2)
+        samp = torch.einsum("kjq,kiqc->kijc", B, t1)       # (K,16,16,2)
+        gxr = samp[..., 0].reshape(K, _S)
+        gyr = samp[..., 1].reshape(K, _S)
+    else:
+        # The grid rotated by each keypoint's angle (256 samples each), then
+        # the sampled gradients rotated into the keypoint frame.
+        ca = torch.cos(angle)[:, None]
+        sa = torch.sin(angle)[:, None]
+        ox, oy = geom.offs[:, 0][None], geom.offs[:, 1][None]
+        lu = uv[:, 0:1] + (ca * ox - sa * oy) - iu0[:, None].float()
+        lv = uv[:, 1:2] + (sa * ox + ca * oy) - iv0[:, None].float()
+        samp = sample_bilinear_patches(fields, lu, lv, lo, hi)   # (K, S, 2)
+        gxs, gys = samp[..., 0], samp[..., 1]
+        gxr = ca * gxs + sa * gys
+        gyr = -sa * gxs + ca * gys
     mag = torch.sqrt(gxr * gxr + gyr * gyr + 1e-12)
     ori = torch.atan2(gyr, gxr)
 

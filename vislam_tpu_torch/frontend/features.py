@@ -1,6 +1,6 @@
 """Per-frame feature extraction: scale space -> detect -> describe (port of
 `vislam_tpu/frontend/features.py`: the Gaussian or nonlinear scale space,
-every detector family, upright SIFT or BRIEF descriptors)."""
+every detector family, SIFT or BRIEF descriptors, upright or oriented)."""
 
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ def extract_features(image, cfg: FrontendConfig = FrontendConfig(),
     Detection and description run per level (descriptors on the keypoint's
     own level); uv is reported in level-0 pixels. `geom` holds the
     descriptors' static geometry on the image's device (built here if not
-    given). Descriptors are upright (`cfg.oriented` is not ported).
+    given). With `cfg.oriented` each descriptor is taken in its keypoint's
+    orientation frame (`kps.angle`), else upright.
     """
     if geom is None:
         geom = DescriptorGeometry(image.device)
@@ -58,6 +59,7 @@ def extract_features(image, cfg: FrontendConfig = FrontendConfig(),
         levels_used=cfg.levels_used,
         detector=cfg.detector,
     )
+    angle = kps.angle if cfg.oriented else None
     cells = cfg.grid_rows * cfg.grid_cols
     descs = []
     off = 0
@@ -65,10 +67,12 @@ def extract_features(image, cfg: FrontendConfig = FrontendConfig(),
         n = cells * cfg.kp_per_cell_by_level[lvl]
         level = pyr[lvl].float()
         uv = kps.uv[off:off + n] / float(2 ** lvl)
+        ang = None if angle is None else angle[off:off + n]
         if cfg.descriptor == "brief":
-            descs.append(describe_binary(level, uv, torch.zeros_like(uv[:, 0]), geom.brief))
+            descs.append(describe_binary(
+                level, uv, torch.zeros_like(uv[:, 0]) if ang is None else ang, geom.brief))
         else:
-            descs.append(describe_keypoints(level, uv, geom))
+            descs.append(describe_keypoints(level, uv, geom, ang))
         off += n
     return Features(uv=kps.uv, desc=torch.cat(descs, dim=0), score=kps.score,
                     level=kps.level, angle=kps.angle, mask=kps.mask)

@@ -5,6 +5,7 @@ from vislam_tpu_torch.lie.quat import (
     quat_canonical,
     quat_mul,
     quat_normalize,
+    quat_slerp,
     quat_to_mat,
 )
 from vislam_tpu_torch.lie.so3 import (

@@ -86,3 +86,18 @@ def mat_to_quat(m):
     q = torch.where(idx == 0, qw,
                     torch.where(idx == 1, qx, torch.where(idx == 2, qy, qz)))
     return quat_canonical(quat_normalize(q))
+
+
+def quat_slerp(q0, q1, t):
+    """Spherical linear interpolation along the shortest arc; linear where
+    the two are nearly equal (sin of the angle < 1e-5). t broadcasts as
+    (..., 1)."""
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    theta = torch.acos(torch.clamp(dot.abs(), 0.0, 1.0 - _EPS))
+    sin_theta = torch.sin(theta)
+    lerp = sin_theta < 1e-5
+    den = torch.where(lerp, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / den)
+    w1 = torch.where(lerp, t * torch.ones_like(theta), torch.sin(t * theta) / den)
+    return quat_normalize(w0 * q0 + w1 * q1)

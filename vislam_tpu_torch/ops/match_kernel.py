@@ -25,7 +25,8 @@ plain twin; a CUDA tensor launches `csrc/match_top2.cu` (two launches per
 call, in every mode: a reset of its scratch, then the tiled tensor-core
 kernel) or raises. `match_top2.launches` counts the kernel's calls (a
 folded call once); `match_top2.batched_launches` those in which one A
-serves several B sets (a_group > 1, the window-track match).
+serves several B sets (a_group > 1, the window-track match);
+`match_top2.gated_launches` the gated ones.
 """
 
 from __future__ import annotations
@@ -138,6 +139,7 @@ def _match_op(desc_a: Tensor, mask_a: Tensor, desc_b: Tensor, mask_b: Tensor,
         raise RuntimeError(f"match_top2 launch failed: cudaError {err}")
     match_top2.launches += 1
     match_top2.batched_launches += a_group > 1
+    match_top2.gated_launches += gated
     return min1, min2, arg1, colarg
 
 
@@ -203,3 +205,4 @@ def match_top2(desc_a, mask_a, desc_b, mask_b, uv_pred=None, uv_b=None,
 
 match_top2.launches = 0
 match_top2.batched_launches = 0
+match_top2.gated_launches = 0
