@@ -139,6 +139,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
      same run (scripts/variant_reference_ate.py) and EVAL config 3's
      regenerated rows, bounded at 0.5 m where the reference meets it;
      batch_vision each entry against its unbatched card run;
+     Then the distributed paths (`vislam_tpu_torch/parallel/`, phase
+     parallel), each check fatal, in a pool of 1 rank (NCCL) and one of 4
+     ranks sharing the card (gloo), spawned once after the kernels are
+     built:
+       a. __graft_entry__.dryrun_multichip's problems (W = 10, L = 512 per
+          rank): dist_bundle_adjust, dist_vi_bundle_adjust without and with
+          the online bias, 4 LM iterations: on 1 NCCL rank equal to the
+          one-process solve on the card within 1e-5 with 0 host syncs (sync
+          debug mode); on 4 gloo ranks (L = 2048) against the one-process
+          solve at tests/test_parallel.py's tolerances (R 1e-4, t 1e-3 (VI
+          2e-3), X 5e-3, v 2e-3 (online bias 1e-2), bg 1e-3, ba 1e-2, final
+          cost rtol 1e-3 + atol 1e-5); ms per LM iteration and the gloo
+          ranks' host syncs printed;
+       b. the CLI on EVAL config 2's sequence, `--synthetic 81 --imu-scale
+          --vi-ba --dist-ba 4` (its own 4 ranks): the mesh line, accepted,
+          each rank's launches exactly one batched window match, the
+          refined keyframe rows within 1e-2 m of a 1-rank refine of the same
+          window, the ATE beside the regenerated reference row;
+       c. run_batch_sharded, batch8's configuration cut to 8 x 24 frames,
+          4 ranks x 2 (each rank makes and stages its own sequences):
+          exact launches per batched step in every rank, the gathered batch
+          against run_batch_scan of the 8 in this process (keyframes equal,
+          positions within 1e-3 m), the aggregate frames/s of both printed;
   4. stage times: for each 60-frame path, where a frame's wall time goes
      (each stage alone, synchronised; the GT-free paths add
      vi_align_window, slam refine_window);
@@ -504,33 +527,18 @@ def ptxas_phase() -> None:
                   f"dynamic shared {dyn}", flush=True)
 
 
-def _counters():
-    """name -> (object, attribute that holds the count, key or None)."""
-    from vislam_tpu_torch.ops.fed_kernel import fed_evolve
-    from vislam_tpu_torch.ops.harris_kernel import FAMILIES, response_nms
-    from vislam_tpu_torch.ops.match_kernel import match_top2
-
-    out = {fam: (response_nms, "launches", fam) for fam in FAMILIES}
-    out["fed_evolve"] = (fed_evolve, "launches", None)
-    out["match_top2"] = (match_top2, "launches", None)
-    out["match_top2_batched"] = (match_top2, "batched_launches", None)
-    out["match_top2_gated"] = (match_top2, "gated_launches", None)
-    return out
-
-
 def reset_launches() -> None:
-    for obj, attr, key in _counters().values():
-        if key is None:
-            setattr(obj, attr, 0)
-        else:
-            getattr(obj, attr)[key] = 0
+    from vislam_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def read_launches() -> dict:
     """Every counter, and match_top2_per_pair: the match calls with an A per
     pair (a_group = 1; the single pair's or the batched step's)."""
-    out = {name: (getattr(obj, attr) if key is None else getattr(obj, attr)[key])
-           for name, (obj, attr, key) in _counters().items()}
+    from vislam_tpu_torch.ops import launch_counts
+
+    out = launch_counts()
     out["match_top2_per_pair"] = out["match_top2"] - out["match_top2_batched"]
     return out
 
@@ -2475,6 +2483,371 @@ def trace_variants(ctx) -> None:
                    lambda: run_sequence_scan(eng, state0, _first_frames(inputs, 1)), "frame")
 
 
+# ------------------------------------------------------------- phase parallel
+
+PAR_W, PAR_L = 10, 512   # __graft_entry__.dryrun_multichip's shapes: the window
+                         # (BackendConfig.window_size), landmarks per rank (max_landmarks)
+PAR_ITERS = 4            # the dryrun's LM iterations
+PAR_RANKS = 4            # ranks sharing the card under gloo
+PAR_CLI_FRAMES = 81      # EVAL config 2's sequence (seed 0, 300 landmarks): frames 1-80
+# EVAL config 2's +VI-BA row, regenerated (scripts/variant_reference_ate.py
+# --eval-only at 6eb020b: run_vio over its 80-frame sequence, frames 1-79).
+EVAL2_VI_BA_ATE = 0.3554
+PAR_BATCH = (8, 24)      # batch8's configuration cut from 60 frames to 24, over 4 ranks x 2
+_PAR_LMS = ("vision", "vi", "vi_bias")
+# Per rank of --dist-ba: the window-track match, one batched call.
+_PAR_REFINE = {"match_top2": 1, "match_top2_batched": 1}
+
+
+def _dryrun_problems(n):
+    """__graft_entry__.dryrun_multichip's two problems at W = 10, L = 512 n
+    (numpy, the same draws): the vision-only window (landmarks perturbed by
+    5 cm) and the visual-inertial one with its scale corrupted by 0.8 (its
+    initial velocities and exact IMU factors)."""
+    rng = np.random.default_rng(0)
+    W, L = PAR_W, PAR_L * n
+    f32 = np.float32
+    X = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L), rng.uniform(5, 10, L)], -1)
+    intr = dict(fx=400.0, fy=400.0, cx=376.0, cy=240.0)
+    R_cw = np.tile(np.eye(3, dtype=f32), (W, 1, 1))
+    t_cw = np.zeros((W, 3), f32)
+    t_cw[:, 0] = -0.2 * np.arange(W)
+
+    def project(R, t):
+        Xc = np.einsum("wij,lj->wli", R, X) + t[:, None, :]
+        return np.stack([intr["fx"] * Xc[..., 0] / Xc[..., 2] + intr["cx"],
+                         intr["fy"] * Xc[..., 1] / Xc[..., 2] + intr["cy"]], -1).astype(f32)
+
+    mask = np.ones((W, L), bool)
+    vision = dict(R=R_cw, t=t_cw, X=(X + rng.normal(scale=0.05, size=X.shape)).astype(f32),
+                  obs=project(R_cw, t_cw), mask=mask, **intr)
+    G = np.array([0.0, 0.0, -9.81], f32)
+    dt = 0.4
+    ts = np.arange(W) * dt
+    p = np.stack([0.2 * ts, 0.05 * np.sin(ts), 0.02 * ts], -1).astype(f32)
+    v = np.gradient(p, dt, axis=0).astype(f32)
+    yaw = 0.05 * ts
+    R_wb = np.zeros((W, 3, 3), f32)
+    R_wb[:, 0, 0], R_wb[:, 0, 1] = np.cos(yaw), -np.sin(yaw)
+    R_wb[:, 1, 0], R_wb[:, 1, 1] = np.sin(yaw), np.cos(yaw)
+    R_wb[:, 2, 2] = 1.0
+    R_vi = np.transpose(R_wb, (0, 2, 1))
+    pad0 = lambda a: np.concatenate([np.zeros_like(a[:1]), a], 0).astype(f32)  # noqa: E731
+    fac = dict(dR=np.concatenate([np.eye(3, dtype=f32)[None],
+                                  np.einsum("wji,wjk->wik", R_wb[:-1], R_wb[1:])], 0),
+               dv=pad0(np.einsum("wji,wj->wi", R_wb[:-1], v[1:] - v[:-1] - G * dt)),
+               dp=pad0(np.einsum("wji,wj->wi", R_wb[:-1],
+                                 p[1:] - p[:-1] - v[:-1] * dt - 0.5 * G * dt * dt)),
+               dt=np.concatenate([[0.0], np.full(W - 1, dt)]).astype(f32),
+               valid=np.concatenate([[False], np.ones(W - 1, bool)]))
+    s = 0.8
+    vi = dict(R=R_vi, t=-np.einsum("wij,wj->wi", R_vi, p[0] + s * (p - p[0])).astype(f32),
+              X=(p[0] + s * (X - p[0])).astype(f32),
+              obs=project(R_vi, -np.einsum("wij,wj->wi", R_vi, p)), mask=mask, **intr)
+    return vision, vi, (s * v).astype(f32), fac, G
+
+
+def _par_solvers(vision, vi, v0, fac, G, dev, mesh=None):
+    """name -> a function running that LM (PAR_ITERS iterations) on `dev`:
+    the distributed one on this rank's shard of `mesh`, else the one-process
+    bundle_adjust / vi_bundle_adjust (with the distributed form's bias prior
+    weights). Each returns (R, t, X, v, bg, ba, final cost, initial cost)
+    on the device (v, bg, ba None where the LM has none)."""
+    from vislam_tpu_torch.backend.ba import BAProblem, BAState, bundle_adjust
+    from vislam_tpu_torch.backend.vi_ba import ImuFactors, vi_bundle_adjust
+    from vislam_tpu_torch.parallel.dist_ba import (
+        dist_bundle_adjust, dist_vi_bundle_adjust, shard_problem,
+    )
+
+    def problem(q):
+        st = BAState(*[torch.from_numpy(q[k]).to(dev) for k in ("R", "t", "X")])
+        pr = BAProblem(torch.from_numpy(q["obs"]).to(dev), torch.from_numpy(q["mask"]).to(dev),
+                       q["fx"], q["fy"], q["cx"], q["cy"])
+        return shard_problem(st, pr, mesh) if mesh is not None else (st, pr)
+
+    W = PAR_W
+    zJ, z3 = np.zeros((W, 3, 3), np.float32), np.zeros((W, 3), np.float32)
+    facs = {"vi": fac, "vi_bias": dict(fac, J_R_bg=zJ, J_v_bg=zJ, J_v_ba=zJ, J_p_bg=zJ,
+                                       J_p_ba=zJ, bg_ref=z3, ba_ref=z3)}
+    facs = {k: ImuFactors(**{n: torch.from_numpy(x).to(dev) for n, x in f.items()})
+            for k, f in facs.items()}
+    v, g, eye = (torch.from_numpy(x).to(dev) for x in (v0, G, np.eye(3, dtype=np.float32)))
+    zero = torch.zeros(3, device=dev)
+    bias = dict(bg0=zero, ba0=zero, w_bg_prior=1e4, w_ba_prior=3e3)
+    vis, vip = problem(vision), problem(vi)
+
+    def out(st, info, vel=None, bg=None, ba=None):
+        return (st.R, st.t, st.X, vel, bg, ba, info["final_cost"], info["initial_cost"])
+
+    if mesh is not None:
+        return {
+            "vision": lambda: out(*dist_bundle_adjust(*vis, mesh, iters=PAR_ITERS)),
+            "vi": lambda: (lambda r: out(r[0][0], r[1], r[0][1]))(dist_vi_bundle_adjust(
+                *vip, v, facs["vi"], g, eye, mesh, iters=PAR_ITERS)),
+            "vi_bias": lambda: (lambda r: out(r[0][0], r[1], *r[0][1:]))(dist_vi_bundle_adjust(
+                *vip, v, facs["vi_bias"], g, eye, mesh, iters=PAR_ITERS, **bias)),
+        }
+    return {
+        "vision": lambda: out(*bundle_adjust(*vis, iters=PAR_ITERS)),
+        "vi": lambda: (lambda r: out(r[0][0], r[1], r[0][1]))(vi_bundle_adjust(
+            *vip, v, facs["vi"], g, eye, iters=PAR_ITERS)),
+        "vi_bias": lambda: (lambda r: out(r[0][0], r[1], *r[0][1:]))(vi_bundle_adjust(
+            *vip, v, facs["vi_bias"], g, eye, iters=PAR_ITERS, **bias)),
+    }
+
+
+def _host(result) -> dict:
+    names = ("R", "t", "X", "v", "bg", "ba", "final_cost", "initial_cost")
+    return {k: None if x is None else x.cpu().numpy() for k, x in zip(names, result)}
+
+
+def _all_syncs(fn) -> tuple:
+    """(the syncs _host_syncs finds in fn, the count of sync warnings that
+    native code wrote to stderr meanwhile): gloo stages a CUDA tensor
+    through the host on a thread of its own, whose warnings under sync
+    debug mode bypass Python's warnings."""
+    import tempfile
+
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            py = _host_syncs(fn)
+            torch.cuda.synchronize()
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        f.seek(0)
+        return py, f.read().decode(errors="replace").count("called a synchronizing CUDA")
+
+
+def _par_lm_rank(dev_type: str, with_single: bool) -> dict:
+    """In each rank of a pool on the card: the three distributed LMs on the
+    dryrun's problems at L = 512 x ranks, each once to warm up, once timed
+    (ms per LM iteration, synchronised) and once under sync debug mode (the
+    host syncs inside, Python's and native code's); with_single, also the
+    one-process solve of the same
+    problem on this card and the largest difference from it."""
+    import torch.distributed as dist
+
+    from vislam_tpu_torch.parallel.mesh import axis_position, make_mesh, mesh_device
+
+    mesh = make_mesh(device_type=dev_type)
+    dev = mesh_device(mesh)
+    problems = _dryrun_problems(dist.get_world_size())
+    dist_fns = _par_solvers(*problems, dev, mesh)
+    single = _par_solvers(*problems, dev) if with_single else {}
+    out = {}
+    for name, fn in dist_fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = _host(fn())
+        ms = (time.perf_counter() - t0) * 1e3 / PAR_ITERS
+        syncs, native = _all_syncs(fn)
+        out[name] = dict(res, ms=ms, syncs=len(syncs) + native, sites=sorted(set(syncs)),
+                         native=native, index=axis_position(mesh, "map")[0])
+        if with_single:
+            one = _host(single[name]())
+            out[name]["single_err"] = max(float(np.abs(res[k] - one[k]).max())
+                                          for k in res if res[k] is not None)
+    return out
+
+
+def _par_lm_check(pool1, pool4) -> None:
+    """a. The three distributed LMs: 1 rank under NCCL equal to the one-process
+    solve on the card (1e-5) with 0 host syncs; 4 ranks under gloo against the
+    one-process solve of the 4-rank problem at tests/test_parallel.py's
+    tolerances."""
+    one = pool1.run(_par_lm_rank, DEV, True)[0]
+    for name in _PAR_LMS:
+        r = one[name]
+        print(f"parallel a: {name}, 1 rank ({pool1.backend}), W {PAR_W}, L {PAR_L}: "
+              f"{r['ms']:.2f} ms per LM iteration, cost {float(r['initial_cost']):.6g} -> "
+              f"{float(r['final_cost']):.6g}, max |dist - one process| {r['single_err']:.3e}, "
+              f"host syncs {r['syncs']} {r['sites']} (native {r['native']})", flush=True)
+        if not r["single_err"] <= 1e-5 or r["syncs"]:
+            _fail(f"parallel a: {name} on one NCCL rank differs from the one-process solve "
+                  f"or syncs the host")
+    vision, vi, v0, fac, G = _dryrun_problems(PAR_RANKS)
+    want = {k: _host(fn()) for k, fn in _par_solvers(vision, vi, v0, fac, G, DEV).items()}
+    four = pool4.run(_par_lm_rank, DEV, False)
+    for name in _PAR_LMS:
+        w, ranks = want[name], sorted((r[name] for r in four), key=lambda r: r["index"])
+        # tests/test_parallel.py's tolerances (VI: t 2e-3; the online bias: v 1e-2).
+        tols = {"R": 1e-4, "t": 1e-3 if name == "vision" else 2e-3, "X": 5e-3,
+                "v": 1e-2 if name == "vi_bias" else 2e-3, "bg": 1e-3, "ba": 1e-2}
+        err = {k: max(float(np.abs((np.concatenate([r["X"] for r in ranks])
+                                    if k == "X" else r[k]) - w[k]).max()) for r in ranks)
+               for k in tols if w[k] is not None}
+        # rtol 1e-3; the noise-free vision window ends near 5e-7, below the
+        # float32 round-off of its 20480 residuals' squares (~2e-5): atol 1e-5.
+        dcost = max(abs(float(r["final_cost"]) - float(w["final_cost"])) for r in ranks)
+        cost_rel = dcost / abs(float(w["final_cost"]))
+        print(f"parallel a: {name}, {PAR_RANKS} ranks ({pool4.backend}), W {PAR_W}, L "
+              f"{PAR_L * PAR_RANKS}: {max(r['ms'] for r in ranks):.2f} ms per LM iteration "
+              f"(slowest rank), host syncs per LM per rank {ranks[0]['syncs']} (native "
+              f"{ranks[0]['native']}: gloo's {3 * PAR_ITERS + 1} collectives, each staged "
+              f"through the host); against one process: "
+              f"final cost {float(w['final_cost']):.6g}, |d| {dcost:.2e} (rel {cost_rel:.2e}), "
+              + ", ".join(f"{k} {e:.2e}" for k, e in err.items()), flush=True)
+        if dcost > 1e-3 * abs(float(w["final_cost"])) + 1e-5 \
+                or any(e > tols[k] for k, e in err.items()):
+            _fail(f"parallel a: {name} on {PAR_RANKS} gloo ranks disagrees with one process")
+
+
+def _par_cli_check(pool1) -> None:
+    """b. The CLI on EVAL config 2's sequence with --dist-ba 4: the mesh line,
+    accepted, every rank's launches (one batched window match), the refined
+    keyframe rows against a one-rank refine of the same window, the ATE
+    beside the regenerated reference row."""
+    import tempfile
+
+    from vislam_tpu_torch.parallel.mesh import refine_window_rank
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rep, text = _main_printing(
+            ["--synthetic", str(PAR_CLI_FRAMES), "--imu-scale", "--vi-ba", "--dist-ba",
+             str(PAR_RANKS), "--output", os.path.join(tmp, "t.csv")], "parallel b")
+    d = rep["dist_ba"]
+    if f"distributed window BA (mesh={PAR_RANKS} devices)" not in text \
+            or not d["info"]["accepted"]:
+        _fail("parallel b: no accepted distributed window BA line")
+    for r, launches in enumerate(d["launches"]):
+        got = {k: n for k, n in launches.items() if n}
+        if got != _PAR_REFINE:
+            _fail(f"parallel b: rank {r} launched {got}, expected {_PAR_REFINE}")
+    new, info, launches1 = pool1.run(refine_window_rank, *d["handed"], DEV)[0]
+    count = int(new.window.count)
+    kf_rows = [r for r in rep["rows"] if r["is_kf"]]
+    n_back = min(count, len(kf_rows))
+    one = -torch.einsum("wji,wj->wi", new.window.R_cw, new.window.t_cw).numpy()
+    got = np.array([r["est_p"] for r in kf_rows[len(kf_rows) - n_back:]])
+    dp = float(np.abs(got - one[count - n_back:count]).max())
+    print(f"parallel b: {PAR_RANKS} ranks ({d['backend']} on {', '.join(d['devices'])}): cost "
+          f"{float(d['info']['initial_cost']):.4f} -> {float(d['info']['final_cost']):.4f}; "
+          f"launches per rank {_PAR_REFINE}; 1 rank ({pool1.backend}): cost "
+          f"{float(info['initial_cost']):.4f} -> {float(info['final_cost']):.4f}, the "
+          f"{n_back} refined keyframe rows within {dp:.3e} m of it; ATE {rep['ate']:.4f} m "
+          f"over frames 1-{PAR_CLI_FRAMES - 1} (the reference's EVAL config 2 +VI-BA row, "
+          f"regenerated: {EVAL2_VI_BA_ATE} m over frames 1-79; printed, not bounded)",
+          flush=True)
+    if not dp <= 1e-2 or not info["accepted"] or \
+            {k: n for k, n in launches1.items() if n} != _PAR_REFINE:
+        _fail("parallel b: the 4-rank refine disagrees with the 1-rank refine")
+
+
+def _par_batch_rank(dev_type: str, B: int, N: int) -> dict:
+    """In each rank: its own slice of B synthetic sequences (seeds 0 to
+    B - 1, made and staged here), run_batch_sharded over N frames with the
+    launches counted, then the same run timed between barriers, and the
+    gathered batch."""
+    import torch.distributed as dist
+
+    from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu_torch.engine import (
+        VIOEngine, make_batch_inputs, make_sequence_inputs, stack_states,
+    )
+    from vislam_tpu_torch.parallel.batch_runner import gather_batch, run_batch_sharded
+    from vislam_tpu_torch.parallel.mesh import axis_position, make_mesh, process_shard_range
+
+    mesh = make_mesh(axis_names=("seq",), device_type=dev_type)
+    lo, hi = process_shard_range(B, *axis_position(mesh, "seq"))
+    seqs = [make_synthetic_sequence(SyntheticConfig(n_frames=N + 1, n_landmarks=300, seed=s))
+            for s in range(lo, hi)]
+    eng = VIOEngine(seqs[0]["calib"], device=dev_type)
+    states = stack_states([eng.initialize(s["images"][0], q_wb0=s["gt_quat"][0],
+                                          v_w0=s["gt_vel"][0], p_w0=s["gt_pos"][0])
+                           for s in seqs])
+    inputs = make_batch_inputs([make_sequence_inputs(s, device=dev_type) for s in seqs])
+    kf0 = np.stack([s["gt_pos"][0] for s in seqs]).astype(np.float32)
+
+    def run():
+        return run_batch_sharded(eng, states, inputs, kf0, mesh, process_local=True)
+
+    reset_launches()
+    _, res = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    dist.barrier()
+    wall = time.perf_counter() - t0
+    res = gather_batch(res, mesh)
+    return dict(p=res.p_wc.cpu().numpy(), kf=res.is_keyframe.cpu().numpy(), launches=launches,
+                wall=wall, span=(lo, hi))
+
+
+def _par_batch_check(pool4) -> None:
+    """c. run_batch_sharded: 4 ranks x 2 of batch8's configuration against
+    run_batch_scan of the 8 in this process (keyframes equal, positions
+    within 1e-3 m), exact launches per batched step in every rank, and the
+    aggregate frames/s of both."""
+    from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu_torch.engine import (
+        VIOEngine, make_batch_inputs, make_sequence_inputs, run_batch_scan, stack_states,
+    )
+
+    B, N = PAR_BATCH
+    seqs = [make_synthetic_sequence(SyntheticConfig(n_frames=N + 1, n_landmarks=300, seed=s))
+            for s in range(B)]
+    eng = VIOEngine(seqs[0]["calib"], device=DEV)
+    states = stack_states([eng.initialize(s["images"][0], q_wb0=s["gt_quat"][0],
+                                          v_w0=s["gt_vel"][0], p_w0=s["gt_pos"][0])
+                           for s in seqs])
+    inputs = make_batch_inputs([make_sequence_inputs(s, device=DEV) for s in seqs])
+    kf0 = np.stack([s["gt_pos"][0] for s in seqs]).astype(np.float32)
+    _, res = run_batch_scan(eng, states, inputs, kf0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_batch_scan(eng, states, inputs, kf0)
+    torch.cuda.synchronize()
+    one_fps = B * N / (time.perf_counter() - t0)
+    ranks = pool4.run(_par_batch_rank, DEV, B, N)
+    for r, got in enumerate(ranks):
+        _launches_equal(f"parallel c: rank {r}", got["launches"], _BATCH_STEP, N)
+    p, kf = ranks[0]["p"], ranks[0]["kf"]
+    dp = float(np.abs(p - res.p_wc.cpu().numpy()).max())
+    kf_eq = bool((kf == res.is_keyframe.cpu().numpy()).all())
+    fps = B * N / ranks[0]["wall"]
+    print(f"parallel c: run_batch_sharded, {pool4.backend}, {len(ranks)} ranks x "
+          f"{B // len(ranks)} sequences ({[r['span'] for r in ranks]}) x {N} frames "
+          f"(batch8 cut from 60 frames to {N}): {fps:.2f} frames/s aggregate, beside "
+          f"{one_fps:.2f} for run_batch_scan of {B} in one process (the same call; printed, "
+          f"not bounded); launches per batched step in every rank {_BATCH_STEP}; against "
+          f"one process: keyframes "
+          f"equal {kf_eq}, max |dp_wc| {dp:.3e} m", flush=True)
+    if not kf_eq or not dp <= 1e-3:
+        _fail("parallel c: the sharded batch disagrees with the one-process batch")
+
+
+def parallel_phase() -> None:
+    """The distributed paths (`parallel/`) on the one card: a pool of 1 rank
+    (NCCL) and one of 4 (gloo, sharing the card), each started once (the
+    kernels are built already), and the CLI's own 4 ranks."""
+    from vislam_tpu_torch.parallel.mesh import Ranks
+
+    t0 = time.perf_counter()
+    with Ranks(1, device=DEV) as pool1, Ranks(PAR_RANKS, device=DEV) as pool4:
+        print(f"parallel: pools {pool1.describe()}; {pool4.describe()} "
+              f"(started in {time.perf_counter() - t0:.1f} s)", flush=True)
+        if DEV == "cuda" and (pool1.backend, pool4.backend) != ("nccl", "gloo"):
+            _fail("parallel: expected NCCL for one rank and gloo for ranks sharing the card")
+        t0 = time.perf_counter()
+        _par_lm_check(pool1, pool4)
+        _phase("parallel a (distributed LM)", t0)
+        t0 = time.perf_counter()
+        _par_cli_check(pool1)
+        _phase("parallel b (cli --dist-ba)", t0)
+        t0 = time.perf_counter()
+        _par_batch_check(pool4)
+        _phase("parallel c (run_batch_sharded)", t0)
+
+
 def _phase(name, t0) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2560,6 +2933,9 @@ def main() -> None:
     t0 = time.perf_counter()
     variants = variants_phase(seq, seqs)
     _phase("variants", t0)
+    t0 = time.perf_counter()
+    parallel_phase()
+    _phase("parallel", t0)
     # The order of what follows: see the module's docstring.
     t0 = time.perf_counter()
     for name, ctx in profiled.items():

@@ -1,7 +1,9 @@
 """The JAX package's ATE on the step options of `chip_smoke.py`'s phase
-variants (and EVAL config 3's rows 3 and 3b), on the CPU.
+variants and on EVAL.md's configs 2, 3 and 3b (and, on request, 6), on
+the CPU.
 
     JAX_PLATFORMS=cpu python scripts/variant_reference_ate.py [--out FILE]
+        [--eval-only] [--config6]
 
 Each variant path runs the reference engine (`vislam_tpu`) on the sequence,
 configuration and number of frames that phase variants drives the port
@@ -10,7 +12,10 @@ and reports its unaligned ATE the way chip_smoke.py reports a path's (the
 true first position, then each frame's). The batched path runs the
 reference's `run_batch_scan` and reports each entry's. EVAL config 3's
 plain, +photometric and marg-gauge rows come from `scripts/eval_configs.py`'s
-own `run_vio` on config 3's pinned sequence (its ATE over frames 1-59).
+own `run_vio` on config 3's pinned sequence (its ATE over frames 1-59),
+as do config 2's rows (open loop, +VI-BA, on its pinned 80-frame sequence)
+and config 3b's open-loop and `ends` rows; `--config6` adds config 6's
+500-frame run (`run_long`); `--eval-only` skips the variant paths.
 Prints one JSON object; these are the reference values chip_smoke.py prints
 beside the card's.
 """
@@ -127,29 +132,79 @@ def eval_config3(seq3):
     c = dataclasses.replace(c, backend=dataclasses.replace(c.backend, online_gauge="marg"))
     r = run_vio(seq3, cfg=c, gt_scale=False, vi_ba=True)
     out["3b_marg"] = float(ate_rmse(r["poses"], r["gt"], align=False))
+    r = run_vio(seq3, gt_scale=False)
+    out["3b_open_loop"] = float(ate_rmse(r["poses"], r["gt"], align=False))
+    r = run_vio(seq3, gt_scale=False, vi_ba=True)
+    out["3b_ends"] = float(ate_rmse(r["poses"], r["gt"], align=False))
     return out
+
+
+def eval_config2():
+    """EVAL config 2's rows (open loop, +VI-BA, each with its path-length
+    scale ratio) on its pinned sequence (seed 0, 80 frames, 300
+    landmarks), by run_vio as scripts/eval_configs.py's main() runs them."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from eval_configs import run_vio
+
+    from vislam_tpu.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu.eval import ate_rmse
+
+    seq = make_synthetic_sequence(SyntheticConfig(n_frames=80, n_landmarks=300, seed=0))
+    out = {}
+    for name, vi_ba in (("2_open_loop", False), ("2_vi_ba", True)):
+        r = run_vio(seq, gt_scale=False, vi_ba=vi_ba)
+        length = np.linalg.norm(np.diff(r["poses"], axis=0), axis=1).sum()
+        gt_length = np.linalg.norm(np.diff(r["gt"], axis=0), axis=1).sum()
+        out[name] = {"ate": float(ate_rmse(r["poses"], r["gt"], align=False)),
+                     "scale_ratio": float(length / gt_length)}
+    return out
+
+
+def eval_config6():
+    """EVAL config 6's 500-frame GT-free VI-BA run (scripts/eval_configs.py
+    run_long on its pinned sequence)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from eval_configs import run_long
+
+    from vislam_tpu.data import SyntheticConfig, make_synthetic_sequence
+
+    seq = make_synthetic_sequence(SyntheticConfig(n_frames=500, n_landmarks=400, seed=42))
+    return {k: (float(v) if isinstance(v, (float, np.floating)) else v)
+            for k, v in run_long(seq).items() if k != "fps_cpu_harness"}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="only EVAL.md's rows, not the variant paths")
+    ap.add_argument("--config6", action="store_true",
+                    help="also EVAL config 6's 500-frame run")
     args = ap.parse_args()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     seqs = sequences()
     out = {}
-    for name, (sq, n, gt, fe, be, en) in VARIANTS.items():
+    for name, (sq, n, gt, fe, be, en) in ({} if args.eval_only else VARIANTS).items():
         t0 = time.perf_counter()
         ate, kfs = run_path(seqs[sq], n, gt, _cfg(fe, be, en))
         out[name] = {"ate": ate, "keyframes": kfs, "frames": n, "sequence": sq}
         print(f"{name}: ATE {ate:.4f} m, {kfs} keyframes, {n} frames "
               f"({time.perf_counter() - t0:.0f} s)", flush=True)
-    out["batch_vision"] = {"ate": run_batch_vision(*BATCH_VISION),
-                           "sequences": BATCH_VISION[0], "frames": BATCH_VISION[1]}
-    print(f"batch_vision: {out['batch_vision']}", flush=True)
+    if not args.eval_only:
+        out["batch_vision"] = {"ate": run_batch_vision(*BATCH_VISION),
+                               "sequences": BATCH_VISION[0], "frames": BATCH_VISION[1]}
+        print(f"batch_vision: {out['batch_vision']}", flush=True)
+    out["eval_config2"] = eval_config2()
+    print(f"eval config 2: {out['eval_config2']}", flush=True)
     out["eval_config3"] = eval_config3(seqs["seq3"])
     print(f"eval config 3: {out['eval_config3']}", flush=True)
+    if args.config6:
+        t0 = time.perf_counter()
+        out["eval_config6"] = eval_config6()
+        print(f"eval config 6: {out['eval_config6']} ({time.perf_counter() - t0:.0f} s)",
+              flush=True)
     print(json.dumps(out))
     if args.out:
         with open(args.out, "w") as f:

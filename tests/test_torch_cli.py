@@ -3,8 +3,9 @@ CPU (--cpu), on the reference CLI tests' fixtures: a synthetic sequence
 (against the JAX CLI on the same sequence), an EuRoC fixture with an
 OpenCV-XML calibration (host loop and --scan), a distorted one, a KITTI
 one, checkpoint and resume; the map flags (loop correction against the
-reference's backend and CLI, map save, load and relocalization); and the
-flags it refuses.
+reference's backend and CLI, map save, load and relocalization); the
+distributed window BA (--dist-ba, gloo ranks on the CPU); and the flags it
+refuses.
 """
 
 import ast
@@ -331,7 +332,6 @@ def test_cli_relocalizes_with_the_head_image(tmp_path, monkeypatch):
 
 
 REFUSED = [
-    (["--dist-ba", "8"], "queue 1 item 6"),
     (["--plot", "p"], "Not to port"),
     (["--live-viz", "p"], "Not to port"),
 ]
@@ -345,6 +345,33 @@ def test_cli_refuses_flags_of_modules_not_ported(capsys, flags, item):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert flags[0] in err and "ROADMAP.md" in err and item in err
+
+
+def test_cli_dist_ba(tmp_path, capsys):
+    """--dist-ba 4 after a 24-frame SLAM-mode run (tests/test_cli.py's
+    counterpart): exit 0, the backend line (gloo: --cpu), the reference's
+    mesh line, the refine accepted, every rank on the CPU, and the
+    trajectory finite."""
+    out = str(tmp_path / "traj.csv")
+    report = {}
+    assert cli.main(["--cpu", "--synthetic", "24", "--imu-scale", "--vi-ba", "--dist-ba", "4",
+                     "--output", out], report=report) == 0
+    text = capsys.readouterr().out
+    assert "distributed window BA: backend gloo, 4 ranks on cpu, cpu, cpu, cpu" in text
+    assert "distributed window BA (mesh=4 devices)" in text
+    dist = report["dist_ba"]
+    assert dist["info"]["accepted"] and dist["devices"] == ["cpu"] * 4
+    assert dist["info"]["final_cost"] < dist["info"]["initial_cost"]
+    assert np.isfinite(read_trajectory_csv(out)["est_p"]).all()
+
+
+def test_cli_dist_ba_under_torchrun_needs_its_world_size(monkeypatch):
+    """Under torchrun (WORLD_SIZE set) --dist-ba N must name the group's
+    size: a usage error before any work otherwise."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--cpu", "--synthetic", "5", "--dist-ba", "4"])
+    assert e.value.code == 2
 
 
 def test_cli_argument_errors_and_no_card(tmp_path):

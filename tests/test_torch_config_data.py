@@ -81,8 +81,9 @@ def test_metrics_match_reference(rng):
 
 
 def test_port_imports_neither_jax_nor_reference(tmp_path):
-    """Import every module of the port, the map backend's and the step
-    options' (photometric refine, adversarial imagery) included, in a
+    """Import every module of the port, the map backend's, the step
+    options' (photometric refine, adversarial imagery), the distributed
+    paths' and the debugging switches' included, in a
     fresh interpreter in which `jax`, `vislam_tpu`, `cv2` and `ml_dtypes`
     cannot be imported at all (the card's machine has none of them)."""
     script = textwrap.dedent("""
@@ -109,7 +110,8 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
         for m in ("lie.se3", "lie.sim3", "backend.pose_graph", "backend.sim3_graph",
                   "backend.pnp", "backend.loop", "backend.triangulate",
                   "backend.trajectory_opt", "backend.reloc", "backend.mapio",
-                  "backend.photometric", "data.adversarial"):
+                  "backend.photometric", "data.adversarial", "parallel.mesh",
+                  "parallel.dist_ba", "parallel.batch_runner", "utils.debug"):
             assert "vislam_tpu_torch." + m in names, m
         print("OK", len(names))
     """)

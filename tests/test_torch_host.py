@@ -34,7 +34,7 @@ from vislam_tpu_torch.eval import smooth as tsmooth
 from vislam_tpu_torch.eval import traj_io as ttraj
 from vislam_tpu_torch.utils import checkpoint as tck
 from vislam_tpu_torch.utils import config as tconfig
-from vislam_tpu_torch.utils.convert import state_from_numpy
+from vislam_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 
 torch.set_num_threads(2)
 
@@ -176,7 +176,8 @@ def test_checkpoint_from_port_loads_in_reference(tmp_path, j_state):
 def test_checkpoint_added_field_defaults_and_positional_refused(tmp_path, j_state):
     """A file without the fields added to the state later loads them from
     their defaults (the reference's table); a positional file (no leaf
-    paths) is refused with the ROADMAP item."""
+    paths) with more leaves than the state (a newer checkpoint) is refused,
+    as the reference refuses it."""
     path = str(tmp_path / "j.npz")
     jck.save_checkpoint(path, j_state, 5)
     data = dict(np.load(path))
@@ -191,9 +192,48 @@ def test_checkpoint_added_field_defaults_and_positional_refused(tmp_path, j_stat
     assert not bool(st.vi_engaged) and int(st.bootstrap_applies) == 0
     assert st.shadow_win_p.shape == (10, 3) and not st.shadow_win_p.any()
     assert torch.equal(st.window.desc, state_from_numpy(j_state, "cpu").window.desc)
-    np.savez(str(tmp_path / "pos.npz"), **{k: v for k, v in data.items() if k != "__paths"})
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tck.load_checkpoint(str(tmp_path / "pos.npz"), device="cpu")
+    n = len(paths)
+    newer = {k: v for k, v in data.items() if k != "__paths"}
+    newer[f"leaf_{n}"] = np.zeros(3, np.float32)
+    np.savez(str(tmp_path / "newer.npz"), **newer)
+    for load in (lambda p: tck.load_checkpoint(p, device="cpu"), jck.load_checkpoint):
+        with pytest.raises(ValueError, match="newer checkpoint"):
+            load(str(tmp_path / "newer.npz"))
+
+
+def _positional(tmp_path, j_state, drop_trailing):
+    """The reference's save of j_state as an older positional file: no leaf
+    paths, and without the state's last `drop_trailing` leaves."""
+    path = str(tmp_path / "j.npz")
+    jck.save_checkpoint(path, j_state, 11)
+    data = dict(np.load(path))
+    n = len(data["__paths"]) - drop_trailing
+    old = {f"leaf_{i}": data[f"leaf_{i}"] for i in range(n)}
+    pos = str(tmp_path / f"pos{drop_trailing}.npz")
+    np.savez(pos, **old, __frame_index=data["__frame_index"],
+             __bf16_leaves=data["__bf16_leaves"])
+    return pos
+
+
+@pytest.mark.parametrize("drop_trailing", [0, 3], ids=["positional", "padded"])
+def test_checkpoint_positional_loads_as_the_reference(tmp_path, j_state, drop_trailing):
+    """A positional file written from the reference's save loads leaf for
+    leaf as the reference's load_checkpoint reads it: positionally when
+    the counts match; with the last three fields (shadow_origin_p,
+    bootstrap_applies, vi_engaged) missing, padded from their defaults."""
+    pos = _positional(tmp_path, j_state, drop_trailing)
+    st, fidx = tck.load_checkpoint(pos, device="cpu")
+    want, j_fidx = jck.load_checkpoint(pos)
+    assert fidx == j_fidx == 11
+    assert st.window.desc.dtype == torch.bfloat16
+    got = state_to_numpy(st)
+    for a, b in zip(_leaves(got), jax.tree.leaves(want)):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    if drop_trailing:
+        assert not bool(st.vi_engaged) and int(st.bootstrap_applies) == 0
+        assert not st.shadow_origin_p.any()
 
 
 # ---------------------------------------------------------------- host loop

@@ -13,6 +13,12 @@ rejected. `cholesky_ex` instead reports `info > 0` beside a partial factor:
 the solve's result is set to NaN wherever `info != 0`, which keeps the
 reference's reject without a host check.
 
+Landmark-sharded mode (`group`, the reference's `axis_name`): each rank
+holds a contiguous shard of the landmarks, its Hpp, bp, S and rhs are
+partial sums over that shard, and one `all_reduce` sums them over the
+process group (`parallel/dist_ba.py`); the (6W, 6W) solve then runs
+replicated on every rank and the back-substitution stays local.
+
 Pose convention: world->camera, X_c = R X_w + t; perturbations are
 left-multiplicative se3 twists [rho, phi]: (R, t) <- exp(dxi) (R, t).
 """
@@ -22,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from vislam_tpu_torch.lie.se3 import se3_exp
 from vislam_tpu_torch.lie.so3 import so3_hat
@@ -124,10 +131,24 @@ def _inv3x3(M):
     return adj / safe[..., None, None]
 
 
-def reduce_landmarks(Hpp, Hpl, Hll, bp, bl, lam):
+def all_reduce_sum(t, group):
+    """t summed over the ranks of `group`: a process group, or a sequence
+    of groups summed over in turn (the axes of a mesh, as a psum over a
+    tuple of axes); t itself when group is None. t is not modified."""
+    if group is None:
+        return t
+    t = t.clone()
+    for g in (group if isinstance(group, (tuple, list)) else (group,)):
+        dist.all_reduce(t, group=g)
+    return t
+
+
+def reduce_landmarks(Hpp, Hpl, Hll, bp, bl, lam, group=None):
     """Eliminate the landmark block: the reduced camera system (S (W,W,6,6)
-    with the damped Hpp on its diagonal, rhs (W,6)) and Hll^-1. The
-    reference's landmark-sharded mode (axis_name) comes with `parallel/`."""
+    with the damped Hpp on its diagonal, rhs (W,6)) and Hll^-1. With
+    `group` (see `all_reduce_sum`) the landmarks are this rank's shard:
+    Hpp, bp, S and the rhs correction are summed over the group in one
+    all_reduce before the damping; Hll^-1 stays the shard's."""
     W = Hpp.shape[0]
     eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     eye6 = torch.eye(6, dtype=Hpp.dtype, device=Hpp.device)
@@ -136,6 +157,11 @@ def reduce_landmarks(Hpp, Hpl, Hll, bp, bl, lam):
     Awl = torch.einsum("wlij,ljk->wlik", Hpl, Hll_inv)
     S = -torch.einsum("wlik,vljk->wvij", Awl, Hpl)
     rhs_corr = torch.einsum("wlik,lk->wi", Awl, bl)
+    if group is not None:
+        parts = (Hpp, bp, S, rhs_corr)
+        summed = all_reduce_sum(torch.cat([x.reshape(-1) for x in parts]), group)
+        Hpp, bp, S, rhs_corr = [x.reshape(p.shape) for x, p in zip(
+            summed.split([p.numel() for p in parts]), parts)]
     dpp = torch.diagonal(Hpp, dim1=-2, dim2=-1)
     Hpp_d = Hpp + (lam * dpp + 1e-8)[..., None] * eye6[None]
     on_diag = torch.eye(W, dtype=torch.bool, device=Hpp.device)[:, :, None, None]
@@ -158,11 +184,14 @@ def cholesky_solve_or_nan(A, b):
     return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
-def schur_solve(Hpp, Hpl, Hll, bp, bl, lam, fix_first: int = 1, fixed_mask=None):
+def schur_solve(Hpp, Hpl, Hll, bp, bl, lam, fix_first: int = 1, fixed_mask=None,
+                group=None):
     """Damped Schur-complement solve: (dxi (W,6), dX (L,3)). fixed_mask (W,)
-    gauge-fixes arbitrary poses; else the first `fix_first` are fixed."""
+    gauge-fixes arbitrary poses; else the first `fix_first` are fixed.
+    With `group` the landmarks are this rank's shard (`reduce_landmarks`):
+    dxi is the group's, dX the shard's."""
     W = Hpp.shape[0]
-    S, rhs, Hll_inv = reduce_landmarks(Hpp, Hpl, Hll, bp, bl, lam)
+    S, rhs, Hll_inv = reduce_landmarks(Hpp, Hpl, Hll, bp, bl, lam, group)
     Sm = S.transpose(1, 2).reshape(W * 6, W * 6)
     rm = rhs.reshape(W * 6)
     dev = Sm.device

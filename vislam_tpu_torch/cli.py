@@ -34,15 +34,26 @@ Sim(3)) pose graph and --save-map writes the archive. Without these flags
 the loop does nothing more per frame.
 
 Every step option of the reference's CLI runs: --oriented descriptors,
---photometric refine, --gauge ends|oldest2|marg of the window BA. Flags
-of modules the port does not have yet exit with status 2 and name their
-ROADMAP.md item: --dist-ba, --plot, --live-viz.
+--photometric refine, --gauge ends|oldest2|marg of the window BA.
+
+--dist-ba N refines the final keyframe window after the run with the
+landmarks sharded over N ranks (`engine/refine.py::refine_window_distributed`,
+`parallel/`) and patches the trailing keyframe rows. Under torchrun the
+ranks are torchrun's (N must equal WORLD_SIZE; rank 0 writes the files);
+otherwise the CLI spawns N ranks and hands each the final state. NCCL
+when each rank has a card of its own, else gloo with the ranks sharing
+the card; gloo on the CPU only with --cpu. A line names the backend and
+each rank's device.
+
+--plot and --live-viz (the reference's `viz/`, not ported) exit with status
+2 and name their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 from collections import deque
@@ -50,7 +61,6 @@ from collections import deque
 import numpy as np
 import torch
 
-_PARALLEL = "queue 1 item 6 (parallel/)"
 _VIZ = "'Not to port' (viz/)"
 
 # Frames whose packed results the host loop fetches in one copy.
@@ -60,7 +70,6 @@ PIPE_BURST = 4
 def _rejected(args) -> list:
     """(flag, ROADMAP item) of every given flag whose module is not ported."""
     flags = [
-        (args.dist_ba, "--dist-ba", _PARALLEL),
         (args.plot, "--plot", _VIZ),
         (args.live_viz, "--live-viz", _VIZ),
     ]
@@ -137,8 +146,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--oriented", action="store_true",
                     help="rotation-invariant descriptors (sampled in each keypoint's "
                          "orientation frame)")
-    # Flags of modules not ported yet: parsed, then refused (_rejected).
-    ap.add_argument("--dist-ba", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-ba", type=int, default=0, metavar="N",
+                    help="after the run, refine the final keyframe window with the "
+                         "landmarks sharded over N ranks (torchrun's, else spawned)")
+    # Flags of modules not ported: parsed, then refused (_rejected).
     ap.add_argument("--plot", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--live-viz", default=None, help=argparse.SUPPRESS)
     return ap
@@ -168,6 +179,22 @@ def main(argv=None, report: dict | None = None) -> int:
     except RuntimeError as e:
         print(f"{ap.prog}: error: {e} (or pass --cpu)", file=sys.stderr)
         return 1
+    if args.dist_ba and "WORLD_SIZE" in os.environ:
+        # Under torchrun: the refine runs over torchrun's ranks.
+        if args.dist_ba != int(os.environ["WORLD_SIZE"]):
+            ap.error(f"--dist-ba {args.dist_ba} under torchrun needs WORLD_SIZE "
+                     f"{args.dist_ba}, not {os.environ['WORLD_SIZE']}")
+        import torch.distributed as dist
+
+        from vislam_tpu_torch.parallel.mesh import distributed_init
+
+        created = not dist.is_initialized()      # else the caller's group, kept
+        distributed_init(device=device.type)
+        try:
+            return _run(args, device, {} if report is None else report)
+        finally:
+            if created:
+                dist.destroy_process_group()
     return _run(args, device, {} if report is None else report)
 
 
@@ -195,7 +222,63 @@ def _with_frontend(args, cfg, use_vi_ba):
         if backend else cfg
 
 
+def _dist_refine(n, state, eng, rows, timer, report):
+    """--dist-ba N: the final window refined with its landmarks sharded
+    over N ranks (torchrun's group, else N spawned ranks handed the state
+    as CPU tensors); an accepted refine patches the trailing keyframe
+    rows with the window's positions. Returns the state; the report gets
+    "dist_ba": the info, the backend, each rank's device and, from
+    spawned ranks, each rank's kernel launches and what each was handed
+    (refine_window_rank's arguments but the device type)."""
+    import torch.distributed as dist
+
+    from vislam_tpu_torch.engine.refine import refine_window_distributed
+    from vislam_tpu_torch.engine.state import tree_to
+    from vislam_tpu_torch.parallel.mesh import Ranks, make_mesh, refine_window_rank
+
+    c = eng.calib
+    intrinsics = (c.fx, c.fy, c.cx, c.cy)
+    if dist.is_initialized():
+        backend, devices, launches, handed = dist.get_backend(), [str(eng.device)], None, None
+        print(f"distributed window BA: backend {backend}, rank {dist.get_rank()} of "
+              f"{dist.get_world_size()} on {eng.device}")
+        with timer.stage("dist_ba.refine"):
+            state, info = refine_window_distributed(
+                state, eng.cfg, *intrinsics, mesh=make_mesh(n, device_type=eng.device.type),
+                R_bc=eng.R_bc)
+    else:
+        with timer.stage("dist_ba.start"):
+            ranks = Ranks(n, device=eng.device.type)
+        handed = (tree_to(state, "cpu"), eng.cfg, intrinsics, eng.R_bc.cpu())
+        with ranks:
+            print(f"distributed window BA: {ranks.describe()}")
+            with timer.stage("dist_ba.refine"):
+                out = ranks.run(refine_window_rank, *handed, eng.device.type)
+        backend, devices = ranks.backend, ranks.devices
+        launches = [o[2] for o in out]
+        new, info, _ = out[0]
+        state = tree_to(new, eng.device)
+    print(f"distributed window BA (mesh={n} devices): cost {float(info['initial_cost']):.4f} "
+          f"-> {float(info['final_cost']):.4f} "
+          f"({'accepted' if info['accepted'] else 'rejected'})")
+    report["dist_ba"] = dict(info=info, backend=backend, devices=devices, launches=launches,
+                             handed=handed)
+    if info["accepted"] and rows:
+        # The window's refined poses patch the trailing keyframe rows.
+        win = state.window
+        count = int(win.count)
+        kf_rows = [r for r in rows if r["is_kf"]]
+        n_back = min(count, len(kf_rows))
+        R_cw, t_cw = win.R_cw.cpu().numpy(), win.t_cw.cpu().numpy()
+        for i in range(n_back):
+            slot = count - n_back + i
+            kf_rows[len(kf_rows) - n_back + i]["est_p"] = -R_cw[slot].T @ t_cw[slot]
+    return state
+
+
 def _run(args, device, report) -> int:
+    import torch.distributed as dist
+
     from vislam_tpu_torch import lie
     from vislam_tpu_torch.calib import (
         compute_undistort_maps, euroc_calib, kitti_calib, load_opencv_xml, remap_bilinear,
@@ -222,6 +305,7 @@ def _run(args, device, report) -> int:
     cfg = _with_frontend(args, SystemConfig(), use_vi_ba)
 
     timer = StageTimer()
+    writes = not dist.is_initialized() or dist.get_rank() == 0   # torchrun: rank 0
     rows, est_positions, gt_positions = [], [], []
     shadow_track, apply_track = [], []
     pending = deque()
@@ -235,7 +319,7 @@ def _run(args, device, report) -> int:
         print(f"loaded map: {len(kf_archive)} keyframes from {args.load_map}")
 
     def save_ckpt(state, frame_index, last_kf, last_kf_pos=None):
-        if not args.checkpoint:
+        if not args.checkpoint or not writes:
             return
         with timer.stage("checkpoint.save"):
             save_checkpoint(args.checkpoint, state, frame_index, meta={
@@ -546,6 +630,8 @@ def _run(args, device, report) -> int:
             drain(process)
             wall = time.perf_counter() - t0
 
+    if args.dist_ba:
+        state = _dist_refine(args.dist_ba, state, eng, rows, timer, report)
     if args.loop_correct and len(kf_archive) > 10:
         from vislam_tpu_torch.backend.trajectory_opt import correct_trajectory
 
@@ -561,13 +647,14 @@ def _run(args, device, report) -> int:
                 i = by_frame.get(r["frame"])
                 if i is not None:
                     r["est_p"] = p_corr[i]
-    if args.save_map and kf_archive:
+    if args.save_map and kf_archive and writes:
         from vislam_tpu_torch.backend.mapio import save_map
 
         save_map(args.save_map, kf_archive)
         print(f"map saved: {len(kf_archive)} keyframes to {args.save_map}")
-    write_trajectory_csv(args.output, rows)
-    if args.output_tum:
+    if writes:
+        write_trajectory_csv(args.output, rows)
+    if args.output_tum and writes:
         write_trajectory_tum(args.output_tum, rows)
         print(f"TUM-format trajectory written to {args.output_tum}")
     n = len(rows)

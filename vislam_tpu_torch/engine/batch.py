@@ -169,7 +169,7 @@ def batch_noises(eng: VIOEngine, seeds: Sequence[int], n: int, M: int):
 
 
 def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceInputs,
-                   kf_gt_pos0, seed: int = 0, noises=None):
+                   kf_gt_pos0, seed: int = 0, noises=None, offset: int = 0):
     """Run the step over B sequences together (port of the reference's
     `run_batch_scan`, `vislam_tpu/engine/batch.py:139-161`).
 
@@ -182,8 +182,10 @@ def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceI
     device), GT-free with the host float -1.0 for every sequence.
 
     Sequence b draws frame n's hypotheses from
-    `frame_generator(sequence_seed(seed, b), n)`, so entry b equals
-    run_sequence_scan(..., seed=sequence_seed(seed, b)); `noises[b][n] =
+    `frame_generator(sequence_seed(seed, offset + b), n)`, so entry b equals
+    run_sequence_scan(..., seed=sequence_seed(seed, offset + b)); offset is
+    entry 0's index in a larger batch (`parallel/batch_runner.py` runs a
+    slice of one). `noises[b][n] =
     (noise, noise_rescue)` overrides them (stacked once, before the frames;
     with vision-only rotation noise is (H, 8, M) and noise_rescue None).
     Returns (final state (B, ...), FrameResult (B, N, ...)).
@@ -196,7 +198,7 @@ def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceI
         given = [torch.stack([torch.stack([nz[j] for nz in row]) for row in noises], 1)
                  if j == 0 or rescue else [None] * N
                  for j in (0, 1)]          # (N, B, ...) each
-    seeds = [sequence_seed(seed, b) for b in range(B)]
+    seeds = [sequence_seed(seed, offset + b) for b in range(B)]
     gt_scale = inputs_batch.use_gt_scale
 
     def step(state, image, imu, imu_dt, gt_norm, noise, noise_rescue):

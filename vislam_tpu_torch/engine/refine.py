@@ -22,6 +22,8 @@ window must neither raise nor leak NaN into the kept state.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from vislam_tpu_torch.backend.ba import BAProblem, BAState, bundle_adjust
@@ -306,3 +308,68 @@ def refine_window(state: EngineState, cfg: SystemConfig, fx: float, fy: float,
         p_wc=torch.where(good, kf_p_wc, state.p_wc),
         v_w=v_w_state,
     )
+
+
+def refine_window_distributed(state: EngineState, cfg: SystemConfig, fx: float, fy: float,
+                              cx: float, cy: float, mesh, axis="map", R_bc=None):
+    """The window (VI-)BA with the landmarks sharded over the ranks of
+    `mesh` along `axis` (run in every rank, each with the same state):
+    `build_window_problem` (the window-track match, one batched match
+    call), this rank's shard (`parallel/dist_ba.py::shard_problem`), the
+    `ends` gauge (slot 0 and the newest fixed), `dist_vi_bundle_adjust`
+    with cfg.backend.vi_factors (with the bias under estimate_bias) or
+    `dist_bundle_adjust`, then the accept test on the costs. Returns
+    (new_state, info): info has "costs", "initial_cost", "final_cost" and
+    "accepted".
+
+    Offline semantics, as the CLI's --dist-ba N runs it at the end of a
+    sequence: an accepted refine replaces the window's poses (and
+    velocities) directly and moves the live anchors to its newest pose
+    (orthonormalized; no caps, nothing tracks after it). The accept test
+    reads the costs on the host.
+    """
+    from vislam_tpu_torch.parallel.dist_ba import (
+        dist_bundle_adjust,
+        dist_vi_bundle_adjust,
+        shard_problem,
+    )
+
+    be = cfg.backend
+    win = state.window
+    W = win.kp_mask.shape[0]
+    ba_state, prob, _ = build_window_problem(state, cfg, fx, fy, cx, cy)
+    st, pr = shard_problem(ba_state, prob, mesh, axis=axis)
+    dev = st.R.device
+    anchor = int(_anchor(win)[0])
+    W_idx = torch.arange(W, device=dev)
+    fixed = (W_idx == 0) | (W_idx == anchor)
+    if be.vi_factors:
+        bias_kw = dict(J_R_bg=win.imu_J_R_bg, J_v_bg=win.imu_J_v_bg, J_v_ba=win.imu_J_v_ba,
+                       J_p_bg=win.imu_J_p_bg, J_p_ba=win.imu_J_p_ba, bg_ref=win.imu_bg_ref,
+                       ba_ref=win.imu_ba_ref) if be.estimate_bias else {}
+        fac = ImuFactors(dR=win.imu_dR, dv=win.imu_dv, dp=win.imu_dp, dt=win.imu_dt,
+                         valid=win.imu_valid, **bias_kw)
+        g_w = torch.eye(3, dtype=torch.float32, device=dev)[2] * -cfg.engine.gravity
+        Rbc = torch.eye(3, dtype=torch.float32, device=dev) if R_bc is None else R_bc
+        bias = dict(bg0=state.bias_g, ba0=state.bias_a, w_bg_prior=be.vi_w_bg_prior,
+                    w_ba_prior=be.vi_w_ba_prior) if be.estimate_bias else {}
+        out, info = dist_vi_bundle_adjust(
+            st, pr, win.v_w, fac, g_w, Rbc, mesh, axis=axis, iters=be.lm_iters,
+            lam0=be.lm_lambda0, huber_delta=be.huber_delta, w_rot=be.vi_w_rot,
+            w_vel=be.vi_w_vel, w_pos=be.vi_w_pos, fixed_mask=fixed, **bias)
+        refined, v_ref = out[0], out[1]
+    else:
+        refined, info = dist_bundle_adjust(st, pr, mesh, axis=axis, iters=be.lm_iters,
+                                           lam0=be.lm_lambda0, huber_delta=be.huber_delta)
+        v_ref = win.v_w
+    final, initial = float(info["final_cost"]), float(info["initial_cost"])
+    good = math.isfinite(final) and final <= initial
+    info = dict(info, accepted=good)
+    if not good:
+        return state, info
+    R_cw = orthonormalize(refined.R)
+    new_win = win._replace(R_cw=R_cw, t_cw=refined.t, v_w=v_ref)
+    R_wc = R_cw[anchor].T
+    p_wc = -R_wc @ refined.t[anchor]
+    return state._replace(window=new_win, kf_R_wc=R_wc, kf_p_wc=p_wc, R_wc=R_wc, p_wc=p_wc,
+                          v_w=v_ref[anchor]), info

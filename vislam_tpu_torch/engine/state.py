@@ -90,6 +90,14 @@ def tree_where(cond, a, b):
     return a if a is b else torch.where(cond, a, b)
 
 
+def tree_to(tree, device):
+    """Every tensor of nested NamedTuples (or a tensor) moved to `device`;
+    other leaves as they are."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[tree_to(x, device) for x in tree])
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 def stack_states(states) -> EngineState:
     """Per-sequence states (nested NamedTuples of tensors of one structure)
     -> one state whose every leaf has a leading batch dimension B, the

@@ -11,7 +11,9 @@ window's descriptor bank), stored widened to float32 (exact); an optional
 sidecar `<path>.meta.json`. Loading matches leaves by path, so a field
 added to the state since the save takes its registered default. A file
 without `__paths` (the reference's positional format of older saves) is
-refused.
+read in the reference's order: positionally when it has as many leaves as
+the state, else its leaves are the leading ones and the trailing fields
+added since take their defaults; more leaves than the state raises.
 """
 
 from __future__ import annotations
@@ -104,14 +106,17 @@ def load_checkpoint(path: str, device="cuda"):
     """(state on `device`, frame_index) from a checkpoint file."""
     device = require_device(device)
     data = np.load(path)
-    if "__paths" not in data.files:
-        raise ValueError(
-            f"{path}: a positional checkpoint without leaf paths (the reference's "
-            "older format) is not read by the port (ROADMAP.md queue 1: legacy "
-            "positional checkpoints); resave it with the JAX package")
     n = sum(1 for k in data.files if k.startswith("leaf_"))
-    stored = {str(p): data[f"leaf_{i}"] for i, p in enumerate(data["__paths"][:n])}
-    bf16 = {str(data["__paths"][int(i)]) for i in data["__bf16_leaves"]} \
+    if "__paths" in data.files:
+        paths = [str(p) for p in data["__paths"][:n]]
+    else:
+        # Positional: the leading fields of the state, in its order.
+        paths = _leaf_paths()
+        if n > len(paths):
+            raise ValueError(f"{path}: checkpoint has {n} leaves but the state has "
+                             f"{len(paths)}; cannot migrate a newer checkpoint")
+    stored = {p: data[f"leaf_{i}"] for i, p in enumerate(paths[:n])}
+    bf16 = {paths[int(i)] for i in data["__bf16_leaves"]} \
         if "__bf16_leaves" in data.files else set()
     K = int(stored[".kf_feat.uv"].shape[0]) if ".kf_feat.uv" in stored else 0
     W = int(stored[".window.uv"].shape[0]) if ".window.uv" in stored else 0
