@@ -37,11 +37,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
        imu_scale  SystemConfig(), GT-free (IMU scale, the VI alignment),
                   open loop, 60 frames
        slam       GT-free with the in-step window VI-BA (vi_factors +
-                  refine_in_step: bench.py's slam configuration), 60 frames
+                  refine_in_step: bench.py's slam configuration), 45 frames
+                  (cut from 60 to make room for phase eval; its latch
+                  comes at frame 38-39)
      Each path resets every launch counter just before its run and reads
      them just after; it fails unless each of its kernels ran exactly the
      expected times per frame. Each checks finite poses, prints frames/s
-     and the host syncs left inside a step (sync debug mode), and runs its
+     (the median of 3 timed runs) and the
+     host syncs left inside a step (sync debug mode), and runs its
      first 10 frames again on the CPU (plain twins, same random draws) as
      the reference the card must agree with. default, kaze, imu_scale and
      slam also hold ATE < 0.5 m, > 5 keyframes and > 90% of frames solved,
@@ -53,10 +56,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      VI-BA's iterations equal.
      Then three batched paths (run_batch_scan: each frame one
      torch.func.vmap call of the step over B sequences, seeds 0 to B - 1):
-       batch8      SystemConfig(), GT scale, 8 sequences x 60 frames
+       batch8      SystemConfig(), GT scale, 8 sequences x 40 frames
+                   (cut from 60 for the script's time)
        batch32     SystemConfig(), GT scale, 32 sequences x 24 frames
-       batch_slam  the slam path's configuration, GT-free, 4 x 30 frames
-                   (cut from 60 to keep the run near half its time limit)
+       batch_slam  the slam path's configuration, GT-free, 4 x 12 frames
+                   (cut from 60 to 30, then to 12 to make room for phase eval)
      each printing aggregate frames/s (B x N frames over wall, 3 runs),
      exact launch counts per batched step, 0 host syncs per batched step,
      peak memory, each entry's ATE, and each entry's first 10 frames
@@ -152,17 +156,30 @@ Phases, each fatal on failure (exit code != 0, no result line):
           2e-3), X 5e-3, v 2e-3 (online bias 1e-2), bg 1e-3, ba 1e-2, final
           cost rtol 1e-3 + atol 1e-5); ms per LM iteration and the gloo
           ranks' host syncs printed;
-       b. the CLI on EVAL config 2's sequence, `--synthetic 81 --imu-scale
-          --vi-ba --dist-ba 4` (its own 4 ranks): the mesh line, accepted,
-          each rank's launches exactly one batched window match, the
-          refined keyframe rows within 1e-2 m of a 1-rank refine of the same
-          window, the ATE beside the regenerated reference row;
+       b. the CLI on EVAL config 2's sequence cut to 31 frames,
+          `--synthetic 31 --imu-scale --vi-ba --dist-ba 4` (its own 4
+          ranks): the mesh line, accepted, each rank's launches exactly one
+          batched window match, the refined keyframe rows within 1e-2 m of a
+          1-rank refine of the same window, the ATE printed;
        c. run_batch_sharded, batch8's configuration cut to 8 x 24 frames,
           4 ranks x 2 (each rank makes and stages its own sequences):
           exact launches per batched step in every rank, the gathered batch
           against run_batch_scan of the 8 in this process (keyframes equal,
           positions within 1e-3 m), the aggregate frames/s of both printed;
-  4. stage times: for each 60-frame path, where a frame's wall time goes
+     Then the evaluation layer (`vislam_tpu_torch/eval/`, phase eval),
+     each check fatal:
+       a. `eval/matchability.py::repo_match_pairs` on 6-frame `natural` and
+          `repetitive` adversarial sequences at 752x480 for three of
+          scripts/eval_matchability.py's frontend rows (the default,
+          dog+sift guided at 30 px, fast+BRIEF): exact launches (2 of the
+          response per frame, 1 match per pair; the guided row's gated),
+          the card's matches the CPU's (each within 1e-2 px of its twin;
+          at most 1% of them without a twin), each row's inlier rate
+          beside MATCHABILITY.md's, natural's above 0.9;
+       b. `eval/runner.py::run_vio_sequence` over the default path's first
+          20 frames at GT scale, on the card and on the CPU with the card's
+          draws: exact launches, poses within 1e-2 m, ATE < 0.5 m;
+  4. stage times: for each long path (all but harris and dog), where a frame's wall time goes
      (each stage alone, synchronised; the GT-free paths add
      vi_align_window, slam refine_window);
   5. kernel times: each kernel of phase 2 at its path's shapes, kernel and
@@ -176,7 +193,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      float32 on the CUDA cores, the match's a.b as 3xTF32 on the tensor
      cores, the window match's, whose operands are bfloat16 values, as
      one bfloat16 pass) and the share of the graph time the bound is;
-  7. traces: for each 60-frame path, torch.profiler over 3 frames (slam:
+  7. traces: for each long path, torch.profiler over 3 frames (slam:
      1), and for each batched path over its first steps (2; batch_slam
      1) and one step's RANSAC draws alone, and one frame (batched step)
      of each variant path: the device busy share, launches per frame (per
@@ -217,8 +234,12 @@ import numpy as np
 import torch
 
 DEV = "cuda"
-N_FRAMES = 60      # frames of the 60-frame paths
+N_FRAMES = 60      # frames of the long paths (the slam path: SLAM_FRAMES)
 N_SHORT = 10       # frames of the short paths and of each CPU reference
+# The slam path, cut from 60 frames to make room for phase eval: its
+# vi_engaged latch comes with its 21st keyframe (the promotion deadline,
+# vi_two_phase_max_kfs), at frame 38 of this sequence.
+SLAM_FRAMES = 45
 TILE_ROWS = (8, 16, 32)   # the response kernel's tile heights, each checked
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet,
@@ -291,12 +312,12 @@ PATHS = {
     "imu_scale": Path({"shi_tomasi": 2, "match_top2": 2}, gt_scale=False, latch="vi_aligned"),
     # Per frame: the per-frame and guided matches, then the window match
     # (the one batched call).
-    "slam": Path({"shi_tomasi": 2, "match_top2": 3, "match_top2_batched": 1}, gt_scale=False,
-                 latch="vi_engaged",
+    "slam": Path({"shi_tomasi": 2, "match_top2": 3, "match_top2_batched": 1}, SLAM_FRAMES,
+                 gt_scale=False, latch="vi_engaged",
                  backend=dict(vi_factors=True, refine_in_step=True)),
 }
 SLAM_PATH = "slam"
-# Frames each 60-frame path's profiler trace covers: the trace's processing
+# Frames each long path's profiler trace covers: the trace's processing
 # grows with the launches (the slam path makes ~23k a frame); it was most
 # of the run's time at 10 frames (3 on the slam path), and at 5 (2) it kept
 # the whole run, batched paths added, over half of its time limit.
@@ -327,12 +348,15 @@ class BatchPath:
 _BATCH_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2,
                "match_top2_gated": 1}
 BATCH_PATHS = {
-    "batch8": BatchPath(8, N_FRAMES, _BATCH_STEP, accuracy=True),
+    "batch8": BatchPath(8, 40, _BATCH_STEP, accuracy=True,
+                        note="cut in depth from 60 frames to 40: the script's "
+                             "time, the host varying ~30% between calls"),
     "batch32": BatchPath(32, 24, _BATCH_STEP),
-    "batch_slam": BatchPath(4, 30, {**_BATCH_STEP, "match_top2": 3, "match_top2_batched": 1},
+    "batch_slam": BatchPath(4, 12, {**_BATCH_STEP, "match_top2": 3, "match_top2_batched": 1},
                             backend=dict(vi_factors=True, refine_in_step=True), gt_scale=False,
                             trace_steps=1,
-                            note="cut in depth from 60 frames to 30: at 60 its three timed runs "
+                            note="cut in depth from 60 frames to 30, then to 12 to make "
+                                 "room for phase eval: at 60 its three timed runs "
                                  "took the whole script past half of its 1200 s limit; "
                                  "vi_engaged (the promotion deadline, ~frame 35) is printed, "
                                  "not required"),
@@ -1225,7 +1249,7 @@ def _host_syncs(step) -> list:
 
 def path_phase(name, seq):
     """Drive one frontend's path; returns its launch counts and, for a
-    60-frame path, what phases 4 and 7 profile (engine, state, inputs; else
+    long path, what phases 4 and 7 profile (engine, state, inputs; else
     None)."""
     from vislam_tpu_torch.engine import VIOEngine, make_sequence_inputs, run_sequence_scan
     from vislam_tpu_torch.engine.engine import frame_generator
@@ -1258,9 +1282,9 @@ def path_phase(name, seq):
     launches = read_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     fps = [N / elapsed]
-    if N == N_FRAMES:
-        # Two more timed runs: the spread of frames/s on this host (the step
-        # is bound by the host's dispatch of small launches).
+    if N > N_SHORT:
+        # More timed runs: the spread of frames/s on this host (the step is
+        # bound by the host's dispatch of small launches).
         for _ in range(2):
             t0 = time.perf_counter()
             run_sequence_scan(eng, state0, inputs)
@@ -1338,7 +1362,7 @@ def path_phase(name, seq):
     # decision or a centimetre of position cannot.
     if not torch.equal(kf_g, kf_c) or dp > 1e-2 or dm > 5:
         _fail(f"{name}: the card's run disagrees with the CPU plain twins")
-    return launches, ((eng, state, inputs) if N == N_FRAMES else None)
+    return launches, ((eng, state, inputs) if N > N_SHORT else None)
 
 
 def _first(inputs, n):
@@ -2489,10 +2513,9 @@ PAR_W, PAR_L = 10, 512   # __graft_entry__.dryrun_multichip's shapes: the window
                          # (BackendConfig.window_size), landmarks per rank (max_landmarks)
 PAR_ITERS = 4            # the dryrun's LM iterations
 PAR_RANKS = 4            # ranks sharing the card under gloo
-PAR_CLI_FRAMES = 81      # EVAL config 2's sequence (seed 0, 300 landmarks): frames 1-80
-# EVAL config 2's +VI-BA row, regenerated (scripts/variant_reference_ate.py
-# --eval-only at 6eb020b: run_vio over its 80-frame sequence, frames 1-79).
-EVAL2_VI_BA_ATE = 0.3554
+# EVAL config 2's sequence (seed 0, 300 landmarks), cut from 81 frames to 31
+# for the script's time: 14 keyframes (a CPU run), so the window of 10 is full.
+PAR_CLI_FRAMES = 31
 PAR_BATCH = (8, 24)      # batch8's configuration cut from 60 frames to 24, over 4 ranks x 2
 _PAR_LMS = ("vision", "vi", "vi_bias")
 # Per rank of --dist-ba: the window-track match, one batched call.
@@ -2701,8 +2724,7 @@ def _par_lm_check(pool1, pool4) -> None:
 def _par_cli_check(pool1) -> None:
     """b. The CLI on EVAL config 2's sequence with --dist-ba 4: the mesh line,
     accepted, every rank's launches (one batched window match), the refined
-    keyframe rows against a one-rank refine of the same window, the ATE
-    beside the regenerated reference row."""
+    keyframe rows against a one-rank refine of the same window, the ATE."""
     import tempfile
 
     from vislam_tpu_torch.parallel.mesh import refine_window_rank
@@ -2731,9 +2753,7 @@ def _par_cli_check(pool1) -> None:
           f"launches per rank {_PAR_REFINE}; 1 rank ({pool1.backend}): cost "
           f"{float(info['initial_cost']):.4f} -> {float(info['final_cost']):.4f}, the "
           f"{n_back} refined keyframe rows within {dp:.3e} m of it; ATE {rep['ate']:.4f} m "
-          f"over frames 1-{PAR_CLI_FRAMES - 1} (the reference's EVAL config 2 +VI-BA row, "
-          f"regenerated: {EVAL2_VI_BA_ATE} m over frames 1-79; printed, not bounded)",
-          flush=True)
+          f"over frames 1-{PAR_CLI_FRAMES - 1} (printed, not bounded)", flush=True)
     if not dp <= 1e-2 or not info["accepted"] or \
             {k: n for k, n in launches1.items() if n} != _PAR_REFINE:
         _fail("parallel b: the 4-rank refine disagrees with the 1-rank refine")
@@ -2848,11 +2868,149 @@ def parallel_phase() -> None:
         _phase("parallel c (run_batch_sharded)", t0)
 
 
+# ----------------------------------------------------------------- phase eval
+EVAL_MATCH_FRAMES = 6
+EVAL_REGIMES = ("natural", "repetitive")
+# Three of scripts/eval_matchability.py's frontend rows: frontend overrides,
+# the gate (px), the launches per frame (both levels' response) and per
+# pair (the match), and MATCHABILITY.md's inlier rates on natural and
+# repetitive (16 frames at 752x480, the JAX package's frontend).
+EVAL_FRONTENDS = {
+    "shi_tomasi+sift (default)": ({}, 0.0, {"shi_tomasi": 2},
+                                  {"match_top2": 1, "match_top2_per_pair": 1}, (0.992, 0.745)),
+    "dog+sift guided(30px)": (dict(detector="dog"), 30.0, {"dog": 2},
+                              {"match_top2": 1, "match_top2_per_pair": 1,
+                               "match_top2_gated": 1}, (0.976, 0.838)),
+    "fast+brief (AKAZE-ish)": (dict(detector="fast", descriptor="brief"), 0.0, {"fast": 2},
+                               {"match_top2": 1, "match_top2_per_pair": 1}, (0.997, 0.879)),
+}
+EVAL_RUNNER_FRAMES = 20
+
+
+def _pairs_agree(a_pairs, b_pairs, tol=1e-2) -> tuple:
+    """(matches, matches of either side without a twin within tol px)."""
+    total, lone = 0, 0
+    for a, b in zip(a_pairs, b_pairs):
+        x = np.concatenate([a["uv_a"], a["uv_b"]], -1)
+        y = np.concatenate([b["uv_a"], b["uv_b"]], -1)
+        total += max(len(x), len(y))
+        if len(x) == 0 or len(y) == 0:
+            lone += len(x) + len(y)
+            continue
+        d = np.abs(x[:, None, :] - y[None, :, :]).max(-1)
+        lone += int((d.min(1) >= tol).sum() + (d.min(0) >= tol).sum())
+    return total, lone
+
+
+def _eval_match_check() -> None:
+    from vislam_tpu_torch.data.adversarial import make_adversarial_sequence, presets
+    from vislam_tpu_torch.eval.matchability import repo_match_pairs, score_pairs
+    from vislam_tpu_torch.utils.config import FrontendConfig
+
+    n, pairs = EVAL_MATCH_FRAMES, EVAL_MATCH_FRAMES - 1
+    for r, regime in enumerate(EVAL_REGIMES):
+        t0 = time.perf_counter()
+        seq = make_adversarial_sequence(dataclasses.replace(presets()[regime], n_frames=n))
+        H, W = seq["images"][0].shape
+        print(f"eval a: {regime}, {n} frames {W}x{H} rendered in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name, (over, gate, per_frame, per_pair, rates) in EVAL_FRONTENDS.items():
+            fcfg = FrontendConfig(**over)
+            repo_match_pairs(seq, fcfg, gate_px=gate, device=DEV)   # first use: loads, allocs
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            card = repo_match_pairs(seq, fcfg, gate_px=gate, device=DEV)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            expected = {k: v * n for k, v in per_frame.items()}
+            for k, v in per_pair.items():
+                expected[k] = expected.get(k, 0) + v * pairs
+            for counter, got in launches.items():
+                if got != expected.get(counter, 0):
+                    _fail(f"eval {regime} {name}: {counter} launched {got} times over {n} frames "
+                          f"and {pairs} pairs (expected {expected.get(counter, 0)})")
+            cpu = repo_match_pairs(seq, fcfg, gate_px=gate, device="cpu")
+            total, lone = _pairs_agree(card, cpu)
+            s_card = score_pairs(seq["scene"], card, name=name)
+            s_cpu = score_pairs(seq["scene"], cpu, name=name)
+            print(f"eval a: {regime} {name}: {wall * 1e3:.1f} ms for {n} frames and {pairs} "
+                  f"pairs; launches {_nonzero(launches)} (exact); card vs CPU: {total} matches, "
+                  f"{lone} without a twin within 1e-2 px; matches/pair {s_card.matches_per_pair:.1f}"
+                  f" (CPU {s_cpu.matches_per_pair:.1f}), inlier rate "
+                  f"{100 * s_card.inlier_rate:.1f}% (CPU {100 * s_cpu.inlier_rate:.1f}%; "
+                  f"MATCHABILITY.md, 16 frames: {100 * rates[r]:.1f}%), px err "
+                  f"{s_card.mean_px_err:.2f}", flush=True)
+            if lone > 0.01 * total:
+                _fail(f"eval {regime} {name}: the card's matches differ from the CPU's "
+                      f"({lone} of {total} without a twin)")
+            if regime == "natural" and not s_card.inlier_rate > 0.9:
+                _fail(f"eval natural {name}: inlier rate {s_card.inlier_rate:.3f} <= 0.9")
+
+
+def _eval_runner_check(seq) -> None:
+    from vislam_tpu_torch.engine import VIOEngine
+    from vislam_tpu_torch.engine.engine import frame_generator
+    from vislam_tpu_torch.eval import run_vio_sequence
+    from vislam_tpu_torch.frontend.pose import gumbel_noise
+
+    n = EVAL_RUNNER_FRAMES + 1
+    run_vio_sequence(seq, n_frames=3, device=DEV)    # first use
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run_vio_sequence(seq, n_frames=n, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    # initialize's two levels, then each frame's (_VARIANT_STEP: the default step).
+    expected = {k: v * (n - 1) for k, v in _VARIANT_STEP.items()}
+    expected["shi_tomasi"] += 2
+    for counter, got in launches.items():
+        if got != expected.get(counter, 0):
+            _fail(f"eval run_vio_sequence: {counter} launched {got} times over {n - 1} frames "
+                  f"(expected {expected.get(counter, 0)})")
+
+    # The CPU run with the card's draws (each frame's generator on the card).
+    plain = VIOEngine.step
+
+    def step(self, state, image, imu, imu_dt, gt_t_norm=-1.0):
+        g = frame_generator(self.seed, self._step_counter, DEV)
+        H, M = self.cfg.backend.ransac_hyps, self.cfg.frontend.max_keypoints
+        draws = [gumbel_noise(g, H, M, DEV).cpu() for _ in range(2)]
+        return plain(self, state, image, imu, imu_dt, gt_t_norm, *draws)
+
+    VIOEngine.step = step
+    try:
+        cpu = run_vio_sequence(seq, n_frames=n, device="cpu")
+    finally:
+        VIOEngine.step = plain
+    dp = float(np.abs(card["poses"] - cpu["poses"]).max())
+    print(f"eval b: run_vio_sequence, {n - 1} frames GT scale, {wall:.2f} s on the card "
+          f"({(n - 1) / wall:.2f} frames/s with its per-frame fetch); launches "
+          f"{_nonzero(launches)} (exact); ATE {card['ate']:.4f} m (CPU {cpu['ate']:.4f}); "
+          f"card vs CPU with the card's draws: max |dp| {dp:.3e} m (tolerance 1e-2)", flush=True)
+    if not (np.isfinite(card["poses"]).all() and dp <= 1e-2 and card["ate"] < 0.5):
+        _fail("eval run_vio_sequence: the card's run disagrees with the CPU's or ATE >= 0.5 m")
+
+
+def eval_phase(seq) -> None:
+    """The evaluation layer on the card: a. matchability; b. the runner."""
+    t0 = time.perf_counter()
+    _eval_match_check()
+    _phase("eval a (matchability)", t0)
+    t0 = time.perf_counter()
+    _eval_runner_check(seq)
+    _phase("eval b (run_vio_sequence)", t0)
+
+
 def _phase(name, t0) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> None:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA card")
     print(_nvidia_smi(), flush=True)
@@ -2936,6 +3094,9 @@ def main() -> None:
     t0 = time.perf_counter()
     parallel_phase()
     _phase("parallel", t0)
+    t0 = time.perf_counter()
+    eval_phase(seq)
+    _phase("eval", t0)
     # The order of what follows: see the module's docstring.
     t0 = time.perf_counter()
     for name, ctx in profiled.items():
@@ -2959,6 +3120,7 @@ def main() -> None:
     for row in rows:
         row["launches"] = launches[row_path[row["name"]]][row["counter"]]
 
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all", flush=True)
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in ("name", "route", "source", "replaces", "launches",

@@ -4,8 +4,8 @@ CPU (--cpu), on the reference CLI tests' fixtures: a synthetic sequence
 OpenCV-XML calibration (host loop and --scan), a distorted one, a KITTI
 one, checkpoint and resume; the map flags (loop correction against the
 reference's backend and CLI, map save, load and relocalization); the
-distributed window BA (--dist-ba, gloo ranks on the CPU); and the flags it
-refuses.
+distributed window BA (--dist-ba, gloo ranks on the CPU); and the viz
+flags (--plot, --live-viz).
 """
 
 import ast
@@ -331,20 +331,30 @@ def test_cli_relocalizes_with_the_head_image(tmp_path, monkeypatch):
         np.testing.assert_array_equal(got, images[head])
 
 
-REFUSED = [
-    (["--plot", "p"], "Not to port"),
-    (["--live-viz", "p"], "Not to port"),
-]
+VIZ = {
+    # flag: the PNG suffixes it writes
+    "--plot": ("_traj.png", "_state.png"),
+    "--live-viz": ("_live.png",),
+}
 
 
-@pytest.mark.parametrize("flags,item", REFUSED, ids=[" ".join(f) for f, _ in REFUSED])
-def test_cli_refuses_flags_of_modules_not_ported(capsys, flags, item):
-    """Status 2 before any work, naming the flag and its ROADMAP item."""
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--cpu", "--synthetic", "5", *flags])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flags[0] in err and "ROADMAP.md" in err and item in err
+@pytest.mark.parametrize("flag", sorted(VIZ))
+def test_cli_viz_flags_write_their_pngs(tmp_path, capsys, flag):
+    """--plot PREFIX and --live-viz PREFIX on --synthetic 12 (the
+    reference's `viz/`): exit 0, their PNGs written (no temporary left
+    behind by the live snapshot's atomic rewrite), the line that names
+    them printed, and the trajectory as without the flag."""
+    prefix = str(tmp_path / "v")
+    out, plain = str(tmp_path / "t.csv"), str(tmp_path / "plain.csv")
+    assert cli.main(["--cpu", "--synthetic", "12", "--output", out, flag, prefix]) == 0
+    text = capsys.readouterr().out
+    for suffix in VIZ[flag]:
+        assert os.path.getsize(prefix + suffix) > 10000, suffix
+    assert not os.path.exists(prefix + "_live.tmp.png")
+    assert ("plots written to" if flag == "--plot" else "live snapshot:") in text
+    assert cli.main(["--cpu", "--synthetic", "12", "--output", plain]) == 0
+    np.testing.assert_array_equal(read_trajectory_csv(out)["est_p"],
+                                  read_trajectory_csv(plain)["est_p"])
 
 
 def test_cli_dist_ba(tmp_path, capsys):

@@ -83,11 +83,14 @@ def test_metrics_match_reference(rng):
 def test_port_imports_neither_jax_nor_reference(tmp_path):
     """Import every module of the port, the map backend's, the step
     options' (photometric refine, adversarial imagery), the distributed
-    paths' and the debugging switches' included, in a
-    fresh interpreter in which `jax`, `vislam_tpu`, `cv2` and `ml_dtypes`
-    cannot be imported at all (the card's machine has none of them)."""
+    paths', the debugging switches' and the evaluation layer's (runner,
+    matchability, viz) included, and the port's EVAL harness
+    (scripts/torch_eval_configs.py), in a fresh interpreter in which `jax`,
+    `vislam_tpu`, `cv2` and `ml_dtypes` cannot be imported at all (the
+    card's machine has none of them); none of it imports matplotlib (viz
+    imports it only to draw)."""
     script = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pkgutil, sys
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -97,6 +100,7 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
                 return None
 
         sys.meta_path.insert(0, Block())
+        sys.path.insert(0, REPO)
         import vislam_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(vislam_tpu_torch.__path__,
                                                        "vislam_tpu_torch.")]
@@ -111,12 +115,21 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
                   "backend.pnp", "backend.loop", "backend.triangulate",
                   "backend.trajectory_opt", "backend.reloc", "backend.mapio",
                   "backend.photometric", "data.adversarial", "parallel.mesh",
-                  "parallel.dist_ba", "parallel.batch_runner", "utils.debug"):
+                  "parallel.dist_ba", "parallel.batch_runner", "utils.debug",
+                  "eval.runner", "eval.matchability", "viz", "viz.plots", "viz.live"):
             assert "vislam_tpu_torch." + m in names, m
+        spec = importlib.util.spec_from_file_location(
+            "torch_eval_configs", sys.path[0] + "/scripts/torch_eval_configs.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "vislam_tpu", "cv2", "ml_dtypes",
+                                      "matplotlib")]
+        assert not bad, bad
         print("OK", len(names))
     """)
     import os
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = script.replace("REPO", repr(repo))
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
                           env={**os.environ, "PYTHONPATH": repo},
                           capture_output=True, text=True, timeout=120)

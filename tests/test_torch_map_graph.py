@@ -10,9 +10,14 @@ optimizers assemble the normal matrix from the same blocks in another
 order (scatter-add against XLA's) and factor it with another Cholesky, so
 each step's update differs by float32 round-off amplified by the system's
 conditioning: each accepted step is the same, and the final nodes agree
-to 1e-5 (positions in metres on a 4-5 m circle, scales, rotation entries;
-measured 7.2e-7 SE(3), 9.5e-7 Sim(3)), every step's cost to 1e-5 of the
-initial cost (measured 3e-9).
+to 1e-5 for SE(3) (positions in metres on a 4-5 m circle, rotation
+entries; measured 7.2e-7), every step's cost to 1e-5 of the initial cost
+(measured 3e-9). The Sim(3) nodes are held to 1e-4 (`SIM3_TOL`, was 1e-5):
+the reference's own nodes move by up to 5.2e-5 under a 1-ulp change of its
+positions and edge translations (16 random sign patterns, on an AVX-512
+host and with every library limited to AVX2 alike), and the port lies
+1.6e-5 from it on an AVX-512 host (9.5e-7 where written); 1e-4 is that
+spread times about 2.
 """
 
 import jax.numpy as jnp
@@ -31,6 +36,7 @@ from vislam_tpu_torch.backend import sim3_graph as tsg
 
 torch.set_num_threads(2)
 GRAPH_TOL = dict(rtol=0, atol=1e-5)
+SIM3_TOL = dict(rtol=0, atol=1e-4)
 
 
 def _t(x):
@@ -171,8 +177,8 @@ def test_sim3_odometry_edges_and_residuals_match_reference():
 @pytest.mark.parametrize("padded", [False, True], ids=["plain", "padded"])
 def test_sim3_graph_corrects_scale_drift_as_reference(padded):
     """20 iterations on the scale-drift circle: the reference's nodes (R, t,
-    s) and costs, and the reference test's bounds (end scale back near 1,
-    worst position error halved)."""
+    s) within SIM3_TOL and costs, and the reference test's bounds (end
+    scale back near 1, worst position error halved)."""
     g = _scale_drift()
     if padded:
         p = _pad(g)
@@ -189,7 +195,7 @@ def test_sim3_graph_corrects_scale_drift_as_reference(padded):
                                rtol=0, atol=1e-5 * c0)
     for k in ("R", "t", "s"):
         np.testing.assert_allclose(getattr(t_out, k).numpy(), np.array(getattr(j_out, k)),
-                                   **GRAPH_TOL)
+                                   **SIM3_TOL)
     assert float(t_info["final_cost"]) < 0.05 * c0
     assert abs(float(t_out.s[-1]) - 1.0) < 0.1
     err = [np.linalg.norm(x - g["t_gt"], axis=-1).max() for x in (g["t"], t_out.t.numpy())]

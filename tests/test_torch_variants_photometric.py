@@ -5,8 +5,12 @@ Tolerances, each with what was measured when written:
 - `photometric_align` on the reference's two cases
   (tests/test_photometric.py): R within 1e-5, t within 1e-4 m (measured
   7.5e-7 and 7.5e-6: float32 round-off through 40 Gauss-Newton solves),
-  the points in view equal, the final error within 1e-3 relative; and
-  the reference's own accuracy bounds hold for the port;
+  the points in view equal, the final error within 3e-3 relative (was
+  1e-3: the reference's own final error moves by up to 1.64e-3 relative
+  under a 1-ulp change of its two images, 16 random sign patterns, with
+  every library limited to AVX2; 1.05e-3 on an AVX-512 host; the port lies
+  1.68e-3 from it there; 3e-3 is that spread times about 1.8); and the
+  reference's own accuracy bounds hold for the port;
 - `_tukey_weights` on odd and even valid counts: 1e-6 (the same median
   element, read at a device index);
 - the step on EVAL config 3's sequence (seed 1, 350 landmarks, its
@@ -77,7 +81,7 @@ def test_photometric_align_matches_reference(case):
     np.testing.assert_allclose(t.R.numpy(), np.asarray(j.R), atol=1e-5)
     np.testing.assert_allclose(t.t.numpy(), np.asarray(j.t), atol=1e-4)
     assert int(t.num_valid) == int(j.num_valid) > 100
-    assert abs(float(t.final_error) - float(j.final_error)) <= 1e-3 * float(j.final_error)
+    assert abs(float(t.final_error) - float(j.final_error)) <= 3e-3 * float(j.final_error)
     rot_err = np.degrees(np.linalg.norm(Rsp.from_matrix(t.R.numpy().T @ R_ji).as_rotvec()))
     assert rot_err < max_deg and np.linalg.norm(t.t.numpy() - t_ji) < max_m
 

@@ -11,7 +11,11 @@ Tolerances: the match on BRIEF-like descriptors (distances exact multiples
 of 1/64) is exact against the per-entry calls; the response and FED are
 exact against the op on the stacked batch, and within float32 round-off
 of the per-image calls (a batched float32 convolution on the CPU may sum
-in another order than a single one).
+in another order than a single one). For FED that round-off is held at
+4e-4 (was 1e-4): the batched and per-field twins part by 1.37e-4 on some
+hosts (an AVX-512 one; 4 steps on fields of 0-255), and one field's twin
+moves by up to 2.06e-4 under a 1-ulp change of its input (16 random sign
+patterns), so 4e-4 is that spread times about 2.
 """
 
 import numpy as np
@@ -157,7 +161,7 @@ def test_fed_vmap_folds_into_one_call(monkeypatch):
     """FED in the batched nonlinear scale space: a field and a contrast k
     per sequence, both mapped (the fold gives each field its own k), and an
     unmapped k shared by all; one call each, equal to the op on the stacked
-    fields, and to the per-field calls within 1e-4."""
+    fields, and to the per-field calls within 4e-4 (module docstring)."""
     rng = np.random.default_rng(2)
     L = torch.from_numpy(rng.uniform(0, 255, (3, 30, 41)).astype(np.float32))
     k = torch.tensor([2.0, 5.0, 11.0])
@@ -169,6 +173,6 @@ def test_fed_vmap_folds_into_one_call(monkeypatch):
     assert torch.equal(got, fed_evolve(L, k, taus))
     assert torch.equal(shared, fed_evolve(L, k[1].expand(3), taus))
     for i in range(3):
-        torch.testing.assert_close(got[i], fed_evolve(L[i], k[i], taus), rtol=0, atol=1e-4)
-        torch.testing.assert_close(shared[i], fed_evolve(L[i], k[1], taus), rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[i], fed_evolve(L[i], k[i], taus), rtol=0, atol=4e-4)
+        torch.testing.assert_close(shared[i], fed_evolve(L[i], k[1], taus), rtol=0, atol=4e-4)
     assert (got[0] - got[2]).abs().max() > 1.0    # k reached its own field

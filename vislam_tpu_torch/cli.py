@@ -45,8 +45,10 @@ when each rank has a card of its own, else gloo with the ranks sharing
 the card; gloo on the CPU only with --cpu. A line names the backend and
 each rank's device.
 
---plot and --live-viz (the reference's `viz/`, not ported) exit with status
-2 and name their ROADMAP.md item.
+--plot PREFIX writes PREFIX_traj.png and PREFIX_state.png from the
+trajectory CSV after the run; --live-viz PREFIX rewrites PREFIX_live.png
+(the trajectory so far) every few keyframes during it (`viz/`; both need
+matplotlib).
 """
 
 from __future__ import annotations
@@ -61,19 +63,8 @@ from collections import deque
 import numpy as np
 import torch
 
-_VIZ = "'Not to port' (viz/)"
-
 # Frames whose packed results the host loop fetches in one copy.
 PIPE_BURST = 4
-
-
-def _rejected(args) -> list:
-    """(flag, ROADMAP item) of every given flag whose module is not ported."""
-    flags = [
-        (args.plot, "--plot", _VIZ),
-        (args.live_viz, "--live-viz", _VIZ),
-    ]
-    return [(flag, item) for given, flag, item in flags if given]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -149,9 +140,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dist-ba", type=int, default=0, metavar="N",
                     help="after the run, refine the final keyframe window with the "
                          "landmarks sharded over N ranks (torchrun's, else spawned)")
-    # Flags of modules not ported: parsed, then refused (_rejected).
-    ap.add_argument("--plot", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--live-viz", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--plot", default=None, metavar="PREFIX",
+                    help="write trajectory/state plots with this path prefix (matplotlib)")
+    ap.add_argument("--live-viz", default=None, metavar="PREFIX",
+                    help="live observability: atomically rewrite PREFIX_live.png (the "
+                         "trajectory so far) every few keyframes during the run (matplotlib)")
     return ap
 
 
@@ -167,11 +160,6 @@ def main(argv=None, report: dict | None = None) -> int:
         ap.error("--resume requires --checkpoint")
     if not args.synthetic and not args.dataset:
         ap.error("either --dataset or --synthetic is required")
-    bad = _rejected(args)
-    if bad:
-        ap.exit(2, "".join(f"{ap.prog}: error: {flag} is not ported yet (ROADMAP.md {item})\n"
-                           for flag, item in bad))
-
     from vislam_tpu_torch.engine.engine import require_device
 
     try:
@@ -317,6 +305,11 @@ def _run(args, device, report) -> int:
 
         kf_archive.extend(load_map(args.load_map))
         print(f"loaded map: {len(kf_archive)} keyframes from {args.load_map}")
+    live = None
+    if args.live_viz and writes:
+        from vislam_tpu_torch.viz import LiveViz
+
+        live = LiveViz(args.live_viz)
 
     def save_ckpt(state, frame_index, last_kf, last_kf_pos=None):
         if not args.checkpoint or not writes:
@@ -467,6 +460,8 @@ def _run(args, device, report) -> int:
                 res = anchored(state, res)
             track(res)
             gt_positions.append(seq["gt_pos"][j])
+            if live is not None:
+                live.update(j, res.p_wc, seq["gt_pos"][j], bool(res.is_keyframe))
             rows.append(row(j, seq["t_cam_ns"][j], res, seq["gt_pos"][j], seq["gt_rpy"][j],
                             seq["gt_quat"][j], seq["gt_vel"][j]))
 
@@ -599,6 +594,8 @@ def _run(args, device, report) -> int:
                 track(res)
                 if fw.gt_pos is not None:
                     gt_positions.append(fw.gt_pos)
+                if live is not None:
+                    live.update(fw.index, res.p_wc, fw.gt_pos, bool(res.is_keyframe))
                 gt_rpy = None if fw.gt_quat is None else lie.quat_to_rpy(
                     torch.as_tensor(fw.gt_quat, dtype=torch.float32)).numpy()
                 rows.append(row(fw.index, fw.t_ns, res, fw.gt_pos, gt_rpy, fw.gt_quat,
@@ -647,6 +644,10 @@ def _run(args, device, report) -> int:
                 i = by_frame.get(r["frame"])
                 if i is not None:
                     r["est_p"] = p_corr[i]
+    if live is not None:
+        out_png = live.close()
+        if out_png:
+            print(f"live snapshot: {out_png}")
     if args.save_map and kf_archive and writes:
         from vislam_tpu_torch.backend.mapio import save_map
 
@@ -681,6 +682,14 @@ def _run(args, device, report) -> int:
             print(f"ATE RMSE (bootstrap-smoothed, unaligned): "
                   f"{ate_rmse(smoothed, gt, align=False):.4f} m")
     print(f"trajectory written to {args.output}")
+    if args.plot and writes:
+        from vislam_tpu_torch.eval import read_trajectory_csv
+        from vislam_tpu_torch.viz import plot_state_comparison, plot_trajectory
+
+        traj = read_trajectory_csv(args.output)
+        plot_trajectory(traj, args.plot + "_traj.png")
+        plot_state_comparison(traj, args.plot + "_state.png")
+        print(f"plots written to {args.plot}_traj.png / _state.png")
     report.update(rows=rows, wall=wall, frames=n, timer=timer, ate=ate,
                   read_s=loader.read_seconds if loader else 0.0,
                   frames_read=loader.frames_read if loader else 0,

@@ -1,6 +1,8 @@
-"""Trajectory metrics, files and smoothing (port of vislam_tpu.eval)."""
+"""Trajectory metrics, files, smoothing and the VIO runner (port of
+vislam_tpu.eval; `eval.matchability` is imported on its own)."""
 
-from vislam_tpu_torch.eval.metrics import ate_rmse, rpe_rmse
+from vislam_tpu_torch.eval.metrics import ate_rmse, rpe_rmse, umeyama_alignment
+from vislam_tpu_torch.eval.runner import run_vio_sequence
 from vislam_tpu_torch.eval.smooth import smooth_bootstrap_prefix
 from vislam_tpu_torch.eval.traj_io import (
     read_trajectory_csv,

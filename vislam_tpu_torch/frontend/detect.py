@@ -41,8 +41,9 @@ class Keypoints(NamedTuple):
 def _grid_topk(resp, grid_rows: int, grid_cols: int, k_per_cell: int, border: int):
     """Top-k responses per grid cell -> (K, 2) uv + (K,) score, K = cells*k.
 
-    torch.topk and lax.top_k may order equal scores differently (hold
-    keypoints as sets, not rows)."""
+    Equal scores go by row-major index, the lowest first, as lax.top_k
+    takes them (a stable sort: torch.topk leaves the choice among equal
+    scores open, and FAST's scores tie often)."""
     H, W = resp.shape
     dev = resp.device
     rows = torch.arange(H, device=dev)[:, None]
@@ -57,7 +58,8 @@ def _grid_topk(resp, grid_rows: int, grid_cols: int, k_per_cell: int, border: in
     cells = cells.reshape(grid_rows, ch, grid_cols, cw).permute(0, 2, 1, 3)
     cells = cells.reshape(grid_rows * grid_cols, ch * cw)
 
-    score, flat_idx = torch.topk(cells, k_per_cell, dim=1)  # (cells, k)
+    score, flat_idx = torch.sort(cells, dim=1, descending=True, stable=True)
+    score, flat_idx = score[:, :k_per_cell], flat_idx[:, :k_per_cell]  # (cells, k)
     cell_ids = torch.arange(grid_rows * grid_cols, device=dev)[:, None]
     v = (cell_ids // grid_cols) * ch + flat_idx // cw
     u = (cell_ids % grid_cols) * cw + flat_idx % cw
