@@ -25,7 +25,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      and gated, the window match of 8 sequences (a_group W = 10) and
      ragged pairs (B = 3, K = 700, N = 333, an all-invalid entry, empty
      discs), every entry against the twin; then the match's custom-op
-     dispatch cost;
+     dispatch cost; then the kernels of the batched nonlinear paths as
+     their step calls them, folded over B = 4 frames (one per sequence):
+     FED's 4- and 8-step cycles with each frame's own k, _gradmag2 on the
+     frames, hessian and fast on both nonlinear levels, and the BRIEF-256
+     match (D = 256, a_group 1) ungated and gated, each against the
+     per-frame kernel calls and the twin;
   3. paths: run_sequence_scan over a 480x752 synthetic sequence, K = 768,
      from the true initial state, for each frontend the port runs (GT
      scale) and for the GT-free modes:
@@ -59,13 +64,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
        batch8      SystemConfig(), GT scale, 8 sequences x 40 frames
                    (cut from 60 for the script's time)
        batch32     SystemConfig(), GT scale, 32 sequences x 24 frames
-       batch_slam  the slam path's configuration, GT-free, 4 x 12 frames
-                   (cut from 60 to 30, then to 12 to make room for phase eval)
+       batch_slam  the slam path's configuration, GT-free, 4 x 10 frames
+                   (cut from 60 to 30, then to 12 to make room for phase
+                   eval, then to 10 for the two paths below)
+       batch_kaze  the kaze path's configuration (nonlinear + hessian),
+                   GT scale, 4 x 12 frames
+       batch_akaze the akaze path's (nonlinear + fast + BRIEF-256), GT
+                   scale, 4 x 12 frames
      each printing aggregate frames/s (B x N frames over wall, 3 runs),
-     exact launch counts per batched step, 0 host syncs per batched step,
-     peak memory, each entry's ATE, and each entry's first 10 frames
-     against its unbatched card run on the same draws (keyframes equal,
-     positions within 1e-3 m); batch8 holds every entry's ATE < 0.5 m;
+     exact launch counts per batched step (the nonlinear paths: 2 FED
+     calls of 5 launches, 2 of the detector, 1 _gradmag2, 2 matches), 0
+     host syncs per batched step, peak memory, each entry's ATE, and each
+     entry's first 10 frames against its unbatched card run on the same
+     draws (keyframes equal, positions within 1e-3 m); batch8 and
+     batch_kaze hold every entry's ATE < 0.5 m (AKAZE does not track on
+     these sequences, in the reference either);
      Then the port's CLI (`vislam_tpu_torch/cli.py`, phase cli), each
      check fatal:
        a. `main(["--synthetic", "61"])` in this process, 3 times: its rows
@@ -193,9 +206,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      float32 on the CUDA cores, the match's a.b as 3xTF32 on the tensor
      cores, the window match's, whose operands are bfloat16 values, as
      one bfloat16 pass) and the share of the graph time the bound is;
-  7. traces: for each long path, torch.profiler over 3 frames (slam:
-     1), and for each batched path over its first steps (2; batch_slam
-     1) and one step's RANSAC draws alone, and one frame (batched step)
+  7. traces: for each long path, torch.profiler over 2 frames (slam:
+     1; 3 before the batched nonlinear paths came), and for each batched
+     path over its first step (2 on batch8 and batch32 until then) and one
+     step's RANSAC draws alone, and one frame (batched step)
      of each variant path: the device busy share, launches per frame (per
      batched step) and the kernels by device time.
 Each phase prints its own wall time ("phase ...: s"). vmap's per-example
@@ -212,7 +226,8 @@ The last two lines are the kernel table {"kernels": [...]} and
 bound_ms of a row are sums over the calls one frame makes (the two levels of
 a response family; FED's 4- and 8-step cycles; the ungated and gated match
 at K = 768; the window match's one batched call; the batched rows the
-calls of one batched step at B = 8), launches_per_call lists
+calls of one batched step at B = 8, the rows named batch_kaze and
+batch_akaze at B = 4), launches_per_call lists
 those calls' device launches, and
 library_ms is null: no single PyTorch call computes any of the three
 functions. Imports nothing of JAX.
@@ -320,21 +335,24 @@ SLAM_PATH = "slam"
 # Frames each long path's profiler trace covers: the trace's processing
 # grows with the launches (the slam path makes ~23k a frame); it was most
 # of the run's time at 10 frames (3 on the slam path), and at 5 (2) it kept
-# the whole run, batched paths added, over half of its time limit.
-TRACE_FRAMES = {"default": 3, "kaze": 3, "akaze": 3, "imu_scale": 3, SLAM_PATH: 1}
+# the whole run, batched paths added, over half of its time limit; cut from
+# 3 to 2 when the batched nonlinear paths came.
+TRACE_FRAMES = {"default": 2, "kaze": 2, "akaze": 2, "imu_scale": 2, SLAM_PATH: 1}
 
 
 @dataclasses.dataclass(frozen=True)
 class BatchPath:
     """A batched path: B sequences (seeds 0 to B - 1) stepped together by
     run_batch_scan from their true initial states, its frames, GT or IMU
-    scale, backend overrides, whether each entry's ATE is bounded, the
-    launches per batched step each counter must show (every other counter
-    0), the steps its trace covers and a note printed with it (a cut)."""
+    scale, frontend and backend overrides, whether each entry's ATE is
+    bounded, the launches per batched step each counter must show (every
+    other counter 0), the steps its trace covers and a note printed with it
+    (a cut)."""
 
     sequences: int
     frames: int
     per_step: dict
+    frontend: dict = dataclasses.field(default_factory=dict)
     backend: dict = dataclasses.field(default_factory=dict)
     gt_scale: bool = True
     accuracy: bool = False
@@ -347,19 +365,37 @@ class BatchPath:
 # window match (an A per sequence shared by its W slots).
 _BATCH_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2,
                "match_top2_gated": 1}
+NONLINEAR_B = 4     # sequences of batch_kaze and batch_akaze
+_NONLINEAR_STEP = {"fed_evolve": 2, "_gradmag2": 1, "match_top2": 2, "match_top2_per_pair": 2,
+                   "match_top2_gated": 1}
 BATCH_PATHS = {
-    "batch8": BatchPath(8, 40, _BATCH_STEP, accuracy=True,
+    "batch8": BatchPath(8, 40, _BATCH_STEP, accuracy=True, trace_steps=1,
                         note="cut in depth from 60 frames to 40: the script's "
-                             "time, the host varying ~30% between calls"),
-    "batch32": BatchPath(32, 24, _BATCH_STEP),
-    "batch_slam": BatchPath(4, 12, {**_BATCH_STEP, "match_top2": 3, "match_top2_batched": 1},
+                             "time, the host varying ~30% between calls; traced over 1 "
+                             "step (was 2) to make room for batch_kaze and batch_akaze"),
+    "batch32": BatchPath(32, 24, _BATCH_STEP, trace_steps=1,
+                         note="traced over 1 step (was 2) to make room for batch_kaze and "
+                              "batch_akaze"),
+    "batch_slam": BatchPath(4, 10, {**_BATCH_STEP, "match_top2": 3, "match_top2_batched": 1},
                             backend=dict(vi_factors=True, refine_in_step=True), gt_scale=False,
                             trace_steps=1,
                             note="cut in depth from 60 frames to 30, then to 12 to make "
-                                 "room for phase eval: at 60 its three timed runs "
-                                 "took the whole script past half of its 1200 s limit; "
-                                 "vi_engaged (the promotion deadline, ~frame 35) is printed, "
-                                 "not required"),
+                                 "room for phase eval, then to 10 (the frames each entry "
+                                 "is held against its unbatched run) for batch_kaze and "
+                                 "batch_akaze: at 60 its three timed runs took the whole "
+                                 "script past half of its 1200 s limit; vi_engaged (the "
+                                 "promotion deadline, ~frame 35) is printed, not required"),
+    # The nonlinear frontends batched: per step the folded FED's two cycles
+    # (5 launches), the detector and the contrast statistic (_gradmag2)
+    # folded, and the two matches (AKAZE's at D = 256, a_group 1).
+    "batch_kaze": BatchPath(NONLINEAR_B, 12, {**_NONLINEAR_STEP, "hessian": 2},
+                            frontend=dict(scale_space="nonlinear", detector="hessian"),
+                            accuracy=True, trace_steps=1),
+    "batch_akaze": BatchPath(NONLINEAR_B, 12, {**_NONLINEAR_STEP, "fast": 2},
+                             frontend=dict(scale_space="nonlinear", detector="fast",
+                                           descriptor="brief"), trace_steps=1,
+                             note="AKAZE does not track on these sequences (in the reference "
+                                  "either): its ATE is printed, not bounded"),
 }
 
 
@@ -901,51 +937,66 @@ def _match_bytes(D, K, N, pairs, a_sets, gated) -> int:
     return per_row * (a_sets * K + pairs * N) + pairs * (12 * K + 4 * N)
 
 
-def _batch_match_rows(feats, gate_px, W):
-    """match_top2 as the batched step calls it, each under torch.func.vmap
-    (the op's rule folds the map into one call of the kernel): B = 8 pairs
-    with an A each (a_group = 1), ungated and gated at the rescue's disc
-    (the per-frame match and the rescue); the window match of 8 sequences
-    (a_group = W: each sequence's anchor against its W slots, the bf16 bank
-    widened as engine/refine.py widens it). Each entry held against the
-    plain twin on its single pair, timed. Then ragged pairs (B = 3,
-    K = 700, N = 333) with an all-invalid entry, ungated and gated with
-    empty discs. The custom op's own cost: the op against its function
-    called directly, back-to-back."""
-    from vislam_tpu_torch.ops.match_kernel import _match_op, match_top2, match_top2_plain
+def _vmapped_match(r):
+    """match_top2 under torch.func.vmap (the op's rule folds the map into
+    one call of the kernel), gated at radius r > 0."""
+    from vislam_tpu_torch.ops.match_kernel import match_top2
 
-    B = BATCH
+    if r > 0:
+        return lambda *x: torch.func.vmap(lambda *y: match_top2(*y, gate_radius=r))(*x)
+    return lambda *x: torch.func.vmap(match_top2)(*x)
 
-    def stack(idx, field):
-        return torch.stack([getattr(feats[i], field) for i in idx]).contiguous()
 
-    ia, ib = [2 * b for b in range(B)], [2 * b + 1 for b in range(B)]
-    a, ma, uva = stack(ia, "desc"), stack(ia, "mask"), stack(ia, "uv")
-    b_, mb, uvb = stack(ib, "desc"), stack(ib, "mask"), stack(ib, "uv")
-    K, D = a.shape[1:]
-    N = b_.shape[1]
+def _batch_pairs(feats_a, feats_b, gate_px, note="") -> tuple:
+    """match_top2 as the batched step calls it: the pairs (feats_a[i],
+    feats_b[i]) under torch.func.vmap, an A each (a_group = 1), ungated
+    and gated at the rescue's disc (the per-frame match and the rescue);
+    each entry held against the plain twin on its single pair, timed.
+    Returns (largest error, measures, the stacked (a, ma, b, mb, uva,
+    uvb))."""
+    from vislam_tpu_torch.ops.match_kernel import match_top2_plain
 
-    def vmapped(r):
-        if r > 0:
-            return lambda *x: torch.func.vmap(lambda *y: match_top2(*y, gate_radius=r))(*x)
-        return lambda *x: torch.func.vmap(match_top2)(*x)
+    def stack(feats, field):
+        return torch.stack([getattr(f, field) for f in feats]).contiguous()
 
+    a, ma, uva = stack(feats_a, "desc"), stack(feats_a, "mask"), stack(feats_a, "uv")
+    b_, mb, uvb = stack(feats_b, "desc"), stack(feats_b, "mask"), stack(feats_b, "uv")
+    (B, K, D), N = a.shape, b_.shape[1]
     measures, err = [], 0.0
     for gated in (False, True):
         r = gate_px if gated else 0.0
         args = (a, ma, b_, mb) + ((uva, uvb) if gated else ())
         label = f"batch{B} pairs K={K} N={N} D={D} gated={gated}"
-        k = vmapped(r)(*args)
+        k = _vmapped_match(r)(*args)
         torch.cuda.synchronize()
-        err = max(err, _per_entry_check(label, D, k, lambda z: match_top2_plain(
-            *[x[z] for x in args], gate_radius=r), mb))
+        err = max(err, _per_entry_check(label + note, D, k, lambda z, args=args, r=r:
+                                        match_top2_plain(*[x[z] for x in args], gate_radius=r),
+                                        mb))
         per_pair = MATCH_FLOP_PER_PAIR + (GATE_FLOP_PER_PAIR if gated else 0)
         measures.append(_measure(
             f"match_top2 {label} (vmap, a_group 1)",
             lambda args=args, r=r: match_top2_plain(*args, gate_radius=r),
-            lambda args=args, r=r: vmapped(r)(*args), _match_bytes(D, K, N, B, B, gated),
+            lambda args=args, r=r: _vmapped_match(r)(*args), _match_bytes(D, K, N, B, B, gated),
             [(3 * 2 * B * K * N * D, "tf32", f"3xTF32 a.b 3 x 2 x {B} x {K} x {N} x {D}"),
              (per_pair * B * K * N, "fp32", f"{per_pair} x {B} x {K} x {N} per pair")], 2))
+    return err, measures, (a, ma, b_, mb, uva, uvb)
+
+
+def _batch_match_rows(feats, gate_px, W):
+    """match_top2 as the batched step calls it, each under torch.func.vmap:
+    B = 8 pairs with an A each (`_batch_pairs`); the window match of 8
+    sequences (a_group = W: each sequence's anchor against its W slots, the
+    bf16 bank widened as engine/refine.py widens it), each entry held
+    against the plain twin on its single pair, timed. Then ragged pairs
+    (B = 3, K = 700, N = 333) with an all-invalid entry, ungated and gated
+    with empty discs. The custom op's own cost: the op against its
+    function called directly, back-to-back."""
+    from vislam_tpu_torch.ops.match_kernel import _match_op, match_top2, match_top2_plain
+
+    B = BATCH
+    err, measures, (a, ma, b_, mb, uva, uvb) = _batch_pairs(
+        feats[0:2 * B:2], feats[1:2 * B:2], gate_px)
+    K, D = a.shape[1:]
     # Ragged pairs; entry 1 wholly invalid; gated, every 3rd disc empty.
     far = (uva[:3, :700] + 1000.0 * (torch.arange(700, device=DEV) % 3 == 0)[:, None]).contiguous()
     mb_r = mb[:3, :333].clone()
@@ -955,7 +1006,7 @@ def _batch_match_rows(feats, gate_px, W):
     for gated in (False, True):
         r = gate_px if gated else 0.0
         args = ragged + ((far, uvb[:3, :333].contiguous()) if gated else ())
-        k = vmapped(r)(*args)
+        k = _vmapped_match(r)(*args)
         torch.cuda.synchronize()
         err = max(err, _per_entry_check(
             f"ragged B=3 K=700 N=333 D={D}, entry 1 all invalid"
@@ -984,7 +1035,7 @@ def _batch_match_rows(feats, gate_px, W):
     anchor, anchor_mask = bank[:, W - 1].contiguous(), masks[:, W - 1].contiguous()
     args = (anchor, anchor_mask, bank, masks)
     label = f"batch{B} window W={W} K={K} N={K} D={D}"
-    k = vmapped(0.0)(*args)
+    k = _vmapped_match(0.0)(*args)
     torch.cuda.synchronize()
     err_w = _per_entry_check(label, D, k, lambda bw: match_top2_plain(
         anchor[bw[0]], anchor_mask[bw[0]], bank[bw], masks[bw]), masks)
@@ -992,7 +1043,7 @@ def _batch_match_rows(feats, gate_px, W):
         f"match_top2 {label} (vmap, a_group {W})",
         lambda flat=(anchor, anchor_mask, bank.flatten(0, 1), masks.flatten(0, 1)):
             match_top2_plain(*flat),
-        lambda: vmapped(0.0)(*args), _match_bytes(D, K, K, B * W, B, False),
+        lambda: _vmapped_match(0.0)(*args), _match_bytes(D, K, K, B * W, B, False),
         [(2 * B * W * K * K * D, "bf16", f"bfloat16 a.b 2 x {B} x {W} x {K} x {K} x {D}"),
          (MATCH_FLOP_PER_PAIR * B * W * K * K, "fp32",
           f"{MATCH_FLOP_PER_PAIR} x {B} x {W} x {K} x {K} per pair")], 2)
@@ -1005,94 +1056,164 @@ def _batch_match_rows(feats, gate_px, W):
                         "vislam_tpu/ops/match_kernel.py:126", err_w, [window])]
 
 
+def _folded(fn, *args):
+    """fn over the leading dim of args under torch.func.vmap (the custom
+    op's rule folds it into one kernel call), its None outputs dropped."""
+    return torch.func.vmap(lambda *a: tuple(o for o in fn(*a) if o is not None))(*args)
+
+
+def _batch_response(fam, levels, timed=True, note="") -> tuple:
+    """response_nms of family fam under torch.func.vmap over the frames of
+    each (B, H, W) of levels (one folded launch per level): against the
+    per-frame kernel calls stacked and against the plain twin, with the
+    tests' tolerances; timed if asked. Returns (largest error against the
+    twin, measures)."""
+    from vislam_tpu_torch.ops.harris_kernel import response_nms, response_nms_plain
+
+    err_max, measures = 0.0, []
+    for x in levels:
+        label = f"vmap B={x.shape[0]} {tuple(x.shape[1:])}"
+        got = _folded(lambda im: response_nms(im, fam), x)
+        each = [[o for o in response_nms(im, fam) if o is not None] for im in x]
+        stacked = [torch.stack(o) for o in zip(*each)]
+        torch.cuda.synchronize()
+        k_nms = got[0] if fam != "_gradmag2" else None
+        err_max = max(err_max, _response_check(fam, f"{label}{note} vs plain", x, k_nms,
+                                               got[-1]))
+        # The folded launch may pick another tile height than a single
+        # frame's (the kernel chooses it from (B, H, W)): held to the
+        # twin's tolerance, not to the bit.
+        diff = (got[-1] - stacked[-1]).abs().max().item()
+        scale = max(stacked[-1].abs().max().item(), 1.0)
+        agree = 1.0 if k_nms is None else \
+            (torch.isneginf(got[0]) == torch.isneginf(stacked[0])).float().mean().item()
+        print(f"kernel response_nms {fam} {label}{note}: against the per-frame kernel calls "
+              f"max |d resp| {diff:.3e} (scale {scale:.3e}), nms agreement {agree:.6f}",
+              flush=True)
+        if not diff / scale < 1e-4 or not agree > 0.999:
+            _fail(f"response_nms {fam} {label}: the folded call differs from the "
+                  "per-frame calls")
+        if timed:
+            px = x.numel()
+            writes = 1 if fam == "_gradmag2" else 2
+            measures.append(_measure(
+                f"response_nms {fam} {label}", lambda x=x, fam=fam: response_nms_plain(x, fam),
+                lambda x=x, fam=fam: _folded(lambda im: response_nms(im, fam), x),
+                4 * px * (1 + writes), [(RESPONSE_FLOP_PER_PX[fam] * px, "fp32",
+                                         f"{RESPONSE_FLOP_PER_PX[fam]} flop/px x {px} px")], 1))
+    return err_max, measures
+
+
 def _batch_response_row(seq):
-    """response_nms under torch.func.vmap over B = 8 frames' levels (one
-    folded launch per level), every family against the per-frame kernel
-    calls stacked and against the plain twin, with the tests' tolerances;
-    shi_tomasi timed at both levels."""
+    """response_nms under torch.func.vmap over B = 8 frames' levels, every
+    family (`_batch_response`); shi_tomasi timed at both levels."""
     from vislam_tpu_torch.frontend.pyramid import build_pyramid
-    from vislam_tpu_torch.ops.harris_kernel import FAMILIES, response_nms, response_nms_plain
+    from vislam_tpu_torch.ops.harris_kernel import FAMILIES
 
     pyrs = [build_pyramid(torch.as_tensor(seq["images"][i]).to(DEV, torch.bfloat16), 2)
             for i in range(BATCH)]
     levels = [torch.stack([p[lv].float() for p in pyrs]).contiguous() for lv in range(2)]
-    err_max, measures = 0.0, []
     for fam in FAMILIES:
-        for x in levels:
-            label = f"vmap B={BATCH} {tuple(x.shape[1:])}"
-            got = torch.func.vmap(lambda im: tuple(
-                o for o in response_nms(im, fam) if o is not None))(x)
-            each = [[o for o in response_nms(im, fam) if o is not None] for im in x]
-            stacked = [torch.stack(o) for o in zip(*each)]
-            torch.cuda.synchronize()
-            k_nms = got[0] if fam != "_gradmag2" else None
-            err = _response_check(fam, label + " vs plain", x, k_nms, got[-1])
-            # The folded launch may pick another tile height than a single
-            # frame's (the kernel chooses it from (B, H, W)): held to the
-            # twin's tolerance, not to the bit.
-            diff = (got[-1] - stacked[-1]).abs().max().item()
-            scale = max(stacked[-1].abs().max().item(), 1.0)
-            agree = 1.0 if k_nms is None else \
-                (torch.isneginf(got[0]) == torch.isneginf(stacked[0])).float().mean().item()
-            print(f"kernel response_nms {fam} {label}: against the per-frame kernel calls "
-                  f"max |d resp| {diff:.3e} (scale {scale:.3e}), nms agreement {agree:.6f}",
-                  flush=True)
-            if not diff / scale < 1e-4 or not agree > 0.999:
-                _fail(f"response_nms {fam} {label}: the folded call differs from the "
-                      "per-frame calls")
-            if fam == "shi_tomasi":
-                err_max = max(err_max, err)
-                px = x.numel()
-                measures.append(_measure(
-                    f"response_nms {fam} {label}",
-                    lambda x=x, fam=fam: response_nms_plain(x, fam),
-                    lambda x=x, fam=fam: torch.func.vmap(lambda im: response_nms(im, fam))(x),
-                    4 * px * 3, [(RESPONSE_FLOP_PER_PX[fam] * px, "fp32",
-                                  f"{RESPONSE_FLOP_PER_PX[fam]} flop/px x {px} px")], 1))
-    return _row("response_nms:shi_tomasi:batch8", "shi_tomasi",
-                "vislam_tpu_torch/ops/csrc/response_nms.cu",
-                "vislam_tpu/ops/harris_kernel.py:193", err_max, measures)
+        err, measures = _batch_response(fam, levels, timed=fam == "shi_tomasi")
+        if fam == "shi_tomasi":
+            row = _row("response_nms:shi_tomasi:batch8", "shi_tomasi",
+                       "vislam_tpu_torch/ops/csrc/response_nms.cu",
+                       "vislam_tpu/ops/harris_kernel.py:193", err, measures)
+    return row
 
 
-def _batch_fed_measures(seq):
-    """fed_evolve under torch.func.vmap over B = 8 presmoothed frames with a
-    distinct k each, the 4- and 8-step cycles (one folded call each):
-    against the per-frame kernel calls stacked and the plain twin; timed
-    (printed beside the fed_evolve row: no path runs the nonlinear
-    frontend batched)."""
-    from vislam_tpu_torch.frontend.nonlinear import contrast_factor, fed_tau_steps
+def _distinct_k_frames(seq) -> tuple:
+    """(L, k): B = 8 presmoothed frames of seq and a distinct contrast
+    factor each."""
+    from vislam_tpu_torch.frontend.nonlinear import contrast_factor
     from vislam_tpu_torch.frontend.pyramid import gaussian_blur
-    from vislam_tpu_torch.ops.fed_kernel import fed_evolve, fed_evolve_plain, fed_schedule
 
     imgs = [torch.as_tensor(seq["images"][i]).to(DEV, torch.bfloat16) for i in range(BATCH)]
     L = torch.stack([gaussian_blur(im, 1.0).float() for im in imgs]).contiguous()
     k = torch.stack([contrast_factor(im) * (0.6 + 0.1 * i) for i, im in enumerate(imgs)])
+    return L, k
+
+
+def _batch_fed_measures(L, k, chain=False, note="") -> tuple:
+    """fed_evolve under torch.func.vmap over the frames of L (B, H, W), each
+    with its k, the 4- and 8-step cycles (one folded call each; chain: the
+    8-step cycle on the 4-step cycle's output, as the step calls them):
+    against the per-frame kernel calls stacked and the plain twin; timed.
+    Returns (largest error against the twin, measures)."""
+    from vislam_tpu_torch.frontend.nonlinear import fed_tau_steps
+    from vislam_tpu_torch.ops.fed_kernel import fed_evolve, fed_evolve_plain, fed_schedule
+
+    B = L.shape[0]
     err_max, measures = 0.0, []
     for T in (0.78, 3.84):
         taus = fed_tau_steps(T)
         n, px = len(taus), L.numel()
-        label = f"vmap B={BATCH} n={n} {tuple(L.shape[1:])}, distinct k"
+        label = f"vmap B={B} n={n} {tuple(L.shape[1:])}"
         got = torch.func.vmap(lambda f, kk: fed_evolve(f, kk, taus))(L, k)
         each = torch.stack([fed_evolve(f, kk, taus) for f, kk in zip(L, k)])
         ref = fed_evolve_plain(L, k, taus)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         diff = (got - each).abs().max().item()
-        print(f"kernel fed_evolve {label}: max_abs_err {err:.3e} against the plain twin, "
+        print(f"kernel fed_evolve {label}{note}: max_abs_err {err:.3e} against the plain twin, "
               f"{diff:.3e} against the per-frame kernel calls", flush=True)
         if not err < 1e-3 or not diff < 1e-3:
             _fail(f"fed_evolve {label} disagrees: {err} (plain), {diff} (per frame)")
         err_max = max(err_max, err)
         measures.append(_measure(
-            f"fed_evolve {label}", lambda taus=taus: fed_evolve_plain(L, k, taus),
-            lambda taus=taus: torch.func.vmap(lambda f, kk: fed_evolve(f, kk, taus))(L, k),
-            8 * px + 4 * BATCH, [(n * FED_FLOP_PER_PX_STEP * px, "fp32",
-                                  f"{n} steps x {FED_FLOP_PER_PX_STEP} flop/px x {px} px")],
+            f"fed_evolve {label}{note}", lambda L=L, taus=taus: fed_evolve_plain(L, k, taus),
+            lambda L=L, taus=taus: torch.func.vmap(lambda f, kk: fed_evolve(f, kk, taus))(L, k),
+            8 * px + 4 * B, [(n * FED_FLOP_PER_PX_STEP * px, "fp32",
+                              f"{n} steps x {FED_FLOP_PER_PX_STEP} flop/px x {px} px")],
             len(fed_schedule(n))))
+        if chain:
+            L = got.contiguous()
     return err_max, measures
 
 
-def kernel_phase(seq, cfg_default):
+def _batch_nonlinear_rows(seqs, gate_px):
+    """The kernels of batch_kaze and batch_akaze as their batched step calls
+    them, each under torch.func.vmap over NONLINEAR_B frames (frame 1 of
+    each of their sequences): the FED cycles (4 steps on the presmoothed
+    frames, 8 on level 0, each frame's own k), the contrast statistic
+    (_gradmag2 on the frames), hessian and fast on both nonlinear levels,
+    and the BRIEF-256 match of each sequence's frames 0 and 1 (a_group 1),
+    ungated and gated: the checks of the B = 8 rows (`_batch_fed_measures`,
+    `_batch_response`, `_batch_pairs`) at these calls."""
+    from vislam_tpu_torch.frontend.features import extract_features
+    from vislam_tpu_torch.frontend.nonlinear import contrast_factor, nonlinear_scale_space
+    from vislam_tpu_torch.frontend.pyramid import gaussian_blur
+    from vislam_tpu_torch.utils.config import FrontendConfig
+
+    B = NONLINEAR_B
+    imgs = [torch.as_tensor(s["images"][1]).to(DEV, torch.bfloat16) for s in seqs[:B]]
+    frames = torch.stack([im.float() for im in imgs]).contiguous()
+    k = torch.stack([contrast_factor(im) for im in imgs])
+    L = torch.stack([gaussian_blur(im, 1.0).float() for im in imgs]).contiguous()
+    err, measures = _batch_fed_measures(L, k, chain=True, note=" (batch_kaze, batch_akaze)")
+    rows = [_row("fed_evolve:batch_kaze", "fed_evolve", "vislam_tpu_torch/ops/csrc/fed_evolve.cu",
+                 "vislam_tpu/ops/fed_kernel.py:83", err, measures)]
+
+    pyrs = [nonlinear_scale_space(im, 2) for im in imgs]
+    nonlin = [torch.stack([p[lv] for p in pyrs]).contiguous() for lv in range(2)]
+    for fam, levels, path in (("_gradmag2", [frames], "batch_kaze"),
+                              ("hessian", nonlin, "batch_kaze"), ("fast", nonlin, "batch_akaze")):
+        err, measures = _batch_response(fam, levels, note=f" ({path})")
+        rows.append(_row(f"response_nms:{fam}:{path}", fam,
+                         "vislam_tpu_torch/ops/csrc/response_nms.cu",
+                         "vislam_tpu/ops/harris_kernel.py:193", err, measures))
+
+    fcfg = FrontendConfig(scale_space="nonlinear", detector="fast", descriptor="brief")
+    feats = [[extract_features(torch.as_tensor(s["images"][i]).to(DEV, torch.float32), fcfg)
+              for s in seqs[:B]] for i in (0, 1)]
+    err, measures, _ = _batch_pairs(feats[0], feats[1], gate_px, note=" (batch_akaze)")
+    rows.append(_row("match_top2:d256:batch_akaze", "match_top2_per_pair",
+                     "vislam_tpu_torch/ops/csrc/match_top2.cu",
+                     "vislam_tpu/ops/match_kernel.py:120", err, measures))
+    return rows
+
+
+def kernel_phase(seq, seqs, cfg_default):
     """Each kernel against its plain twin at main-path shapes and data."""
     # argmin keeps the first index on ties on the card, as on the CPU.
     d = torch.tensor([3.0, 1.0, 2.0, 1.0, 1.0], device=DEV)
@@ -1102,7 +1223,7 @@ def kernel_phase(seq, cfg_default):
     from vislam_tpu_torch.utils.config import FrontendConfig
 
     fed = _fed_row(seq)
-    fed_err, fed_vmap = _batch_fed_measures(seq)
+    fed_err, fed_vmap = _batch_fed_measures(*_distinct_k_frames(seq), note=", distinct k")
     fed["extra"] += fed_vmap
     fed["max_abs_err"] = max(fed["max_abs_err"], fed_err)
     feats = [extract_features(torch.as_tensor(seq["images"][i]).to(DEV, torch.float32),
@@ -1112,7 +1233,8 @@ def kernel_phase(seq, cfg_default):
             + [_window_match_row(seq, cfg_default.backend.window_size)]
             + [_batch_response_row(seq)]
             + _batch_match_rows(feats, cfg_default.frontend.guided_fallback_px,
-                                cfg_default.backend.window_size))
+                                cfg_default.backend.window_size)
+            + _batch_nonlinear_rows(seqs, cfg_default.frontend.guided_fallback_px))
 
 
 def stage_times(name, eng, state, inputs):
@@ -1148,11 +1270,11 @@ def stage_times(name, eng, state, inputs):
     pyr = scale_space()
 
     def wall_ms(fn):
-        """Mean of 20 calls after one (5 where that one took over 0.1 s)."""
+        """Mean of 10 calls after one (5 where that one took over 0.1 s)."""
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        iters = 20 if time.perf_counter() - t0 < 0.1 else 5
+        iters = 10 if time.perf_counter() - t0 < 0.1 else 5
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -1389,7 +1511,7 @@ def batch_path_phase(name, seqs):
     bp = BATCH_PATHS[name]
     B, N = bp.sequences, bp.frames
     seqs = seqs[:B]
-    cfg = _config({}, bp.backend)
+    cfg = _config(bp.frontend, bp.backend)
     eng = VIOEngine(seqs[0]["calib"], cfg, device=DEV)
 
     def init(s):
@@ -1429,7 +1551,8 @@ def batch_path_phase(name, seqs):
     kfs = res.is_keyframe.sum(dim=1).cpu().numpy()
     print(f"path {name}: {B} sequences x {N} frames in {elapsed:.3f} s = {B * N / elapsed:.2f} "
           f"frames/s aggregate, {N / elapsed:.2f} batched steps/s "
-          f"({bp.backend or 'default SystemConfig'}, K={cfg.frontend.max_keypoints}, 480x752, "
+          f"({ {**bp.frontend, **bp.backend} or 'default SystemConfig'}, "
+          f"K={cfg.frontend.max_keypoints}, 480x752, "
           f"{'GT scale' if bp.gt_scale else 'IMU scale, GT-free'}); ATE per entry min "
           f"{min(ates):.4f} / median {float(np.median(ates)):.4f} / max {max(ates):.4f} m; "
           f"keyframes per entry {kfs.min()}-{kfs.max()}; vi_engaged "
@@ -3056,7 +3179,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    rows = kernel_phase(seq, SystemConfig())
+    rows = kernel_phase(seq, seqs, SystemConfig())
     _phase("kernels", t0)
     # Each row's launches come from the run of the path that uses it (the
     # D = 128 match from the default path, D = 256 from the akaze path).
@@ -3066,7 +3189,11 @@ def main() -> None:
                 "fed_evolve": "kaze", "match_top2:d128": "default",
                 "match_top2:d256": "akaze", "match_top2:window": SLAM_PATH,
                 "response_nms:shi_tomasi:batch8": "batch8", "match_top2:batch8_pairs": "batch8",
-                "match_top2:batch8_window": "batch_slam"}
+                "match_top2:batch8_window": "batch_slam", "fed_evolve:batch_kaze": "batch_kaze",
+                "response_nms:_gradmag2:batch_kaze": "batch_kaze",
+                "response_nms:hessian:batch_kaze": "batch_kaze",
+                "response_nms:fast:batch_akaze": "batch_akaze",
+                "match_top2:d256:batch_akaze": "batch_akaze"}
     launches, profiled = {}, {}
     for name in PATHS:
         t0 = time.perf_counter()

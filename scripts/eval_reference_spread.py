@@ -1,4 +1,4 @@
-"""The JAX package's rows of EVAL configs 1, 2c and 6 on the CPU, and their
+"""The JAX package's rows of EVAL configs 1, 2, 2c, 3, 4, 5 and 6 on the CPU, and their
 spread under a 1-ulp change of the inputs or another RANSAC stream: the
 reference values and bounds that `scripts/torch_eval_configs.py` holds the
 port's card runs to.
@@ -6,14 +6,17 @@ port's card runs to.
     JAX_PLATFORMS=cpu python scripts/eval_reference_spread.py --config 1
         [--vary ulp|seed] [--branch cpu|tpu] [--draws 4] [--first 0] [--out FILE]
 
-Each config runs `scripts/eval_configs.py`'s own `run_vio` (config 1),
-`run_cold` (2c) or `run_long` (6) on its pinned sequence (`PINNED`), once
-as generated (draw 0) and once per further draw d. With `--vary ulp` draw
+Each config runs `scripts/eval_configs.py`'s own `run_vio` (configs 1, 2,
+3 and 4, with the options its `main()` gives each row), `run_cold` (2c) or
+`run_long` (6) on its pinned sequence (`PINNED`); config 5, inline in that
+`main()`, is repeated by `run_batch` here. Each runs once as generated
+(draw 0) and once per further draw d. With `--vary ulp` draw
 d moves every IMU sample (gyro and accelerometer, float32) by one ulp up
 or down at random (`numpy.random.default_rng(d)`); the images are not
 perturbed, since the default pipeline runs them in bfloat16, where a
 float32 ulp rounds away. With `--vary seed` draw d runs the engine with
-RANSAC seed d (`VIOEngine(..., seed=d)`): the port draws its hypotheses
+RANSAC seed d (`VIOEngine(..., seed=d)`; config 5: `run_batch_scan(...,
+seed=d)`): the port draws its hypotheses
 from a stream of its own, so the reference's spread over streams is the
 part of the difference the draws make. `--branch tpu` computes every
 detector response in float32 from the bfloat16 pyramid, the arithmetic of
@@ -39,10 +42,20 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# config: (SyntheticConfig arguments, the row's metrics)
+# config: (SyntheticConfig arguments, the row's metrics); config 5 steps
+# eight sequences, seeds 0-7 (its "seed" is replaced by each)
 CONFIGS = {
     "1": (dict(n_frames=80, n_landmarks=300, seed=0), ("ate",)),
+    "2": (dict(n_frames=80, n_landmarks=300, seed=0),
+          ("ate", "scale_ratio", "ate_vi_ba", "scale_ratio_vi_ba", "ate_open_unsupervised")),
     "2c": (dict(n_frames=60, n_landmarks=300, seed=0), ("ate_live", "ate_smoothed")),
+    "3": (dict(n_frames=60, n_landmarks=350, seed=1, trans_amp=(2.0, 1.4, 0.7),
+               rot_amp=(0.12, 0.15, 0.3)),
+          ("ate_plain", "ate_photometric", "ate_online_ba", "ate_vi_open_loop",
+           "ate_vi_online_ba_ends", "ate_vi_online_ba_marg")),
+    "4": (dict(n_frames=86, n_landmarks=300, seed=21),
+          ("ate_open_loop", "n_loops", "kf_maxerr_before", "kf_maxerr_after")),
+    "5": (dict(n_frames=24, n_landmarks=250, seed=0), ("ate_mean", "ate_max")),
     "6": (dict(n_frames=500, n_landmarks=400, seed=42),
           ("ate_full", "ate_f1_100", "ate_f100_300", "ate_f300_500", "kf_maxerr_before",
            "kf_maxerr_after")),
@@ -82,13 +95,87 @@ def tpu_branch():
             lambda img, fn: fn(img.astype(jnp.float32)), fn=fn)
 
 
-def run_config(name: str, seq) -> dict:
+def _path_length(p) -> float:
+    return float(np.linalg.norm(np.diff(p, axis=0), axis=1).sum())
+
+
+def _with(**sections):
+    """SystemConfig() with the given sections' fields replaced."""
+    import dataclasses
+
+    from vislam_tpu.utils.config import SystemConfig
+
+    c = SystemConfig()
+    return dataclasses.replace(c, **{k: dataclasses.replace(getattr(c, k), **v)
+                                     for k, v in sections.items()})
+
+
+def run_batch(seqs, seed: int = 0, cfg=None) -> dict:
+    """Config 5 as `scripts/eval_configs.py`'s main() runs it: run_batch_scan
+    over the sequences from their true initial states (cfg: the engine's,
+    SystemConfig() by default), ATE per entry."""
+    import jax
+    import jax.numpy as jnp
+
+    from vislam_tpu.engine import VIOEngine, make_sequence_inputs, run_batch_scan
+    from vislam_tpu.eval import ate_rmse
+    from vislam_tpu.utils.config import SystemConfig
+
+    n = len(seqs[0]["images"])
+    eng = VIOEngine(seqs[0]["calib"], cfg or SystemConfig())
+    states = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        eng.initialize(s["images"][0], q_wb0=s["gt_quat"][0], v_w0=s["gt_vel"][0],
+                       p_w0=s["gt_pos"][0]) for s in seqs])
+    inps = [make_sequence_inputs(s) for s in seqs]
+    inputs = jax.tree.map(lambda *xs: jnp.stack(xs) if xs[0].ndim > 0 else xs[0], *inps)
+    kf0 = jnp.stack([jnp.asarray(s["gt_pos"][0], jnp.float32) for s in seqs])
+    _, res = run_batch_scan(eng, states, inputs, kf0, seed=seed)
+    ates = [float(ate_rmse(np.asarray(res.p_wc[b]), s["gt_pos"][1:n], align=False))
+            for b, s in enumerate(seqs)]
+    return {"ate_mean": float(np.mean(ates)), "ate_max": float(np.max(ates)), "ates": ates,
+            "poses": np.asarray(res.p_wc)}
+
+
+def run_config(name: str, seq, seed: int = 0) -> dict:
+    """Config `name`'s row on seq (config 5: a list of sequences)."""
     import eval_configs as ec
     from vislam_tpu.eval import ate_rmse
 
+    def ate(r):
+        return float(ate_rmse(r["poses"], r["gt"], align=False))
+
     if name == "1":
         r = ec.run_vio(seq, gt_scale=True)
-        return {"ate": float(ate_rmse(r["poses"], r["gt"], align=False))}
+        return {"ate": ate(r)}
+    if name == "2":
+        r = ec.run_vio(seq, gt_scale=False)
+        r_vb = ec.run_vio(seq, gt_scale=False, vi_ba=True)
+        r_un = ec.run_vio(seq, cfg=_with(engine=dict(vi_align_bootstrap=False)),
+                          gt_scale=False)
+        gl = _path_length(r["gt"])
+        return {"ate": ate(r), "scale_ratio": _path_length(r["poses"]) / gl,
+                "ate_vi_ba": ate(r_vb), "scale_ratio_vi_ba": _path_length(r_vb["poses"]) / gl,
+                "ate_open_unsupervised": ate(r_un)}
+    if name == "3":
+        return {
+            "ate_plain": ate(ec.run_vio(seq, gt_scale=True)),
+            "ate_photometric": ate(ec.run_vio(seq, gt_scale=True, photometric=True)),
+            "ate_online_ba": ate(ec.run_vio(seq, gt_scale=True, ba=True)),
+            "ate_vi_open_loop": ate(ec.run_vio(seq, gt_scale=False)),
+            "ate_vi_online_ba_ends": ate(ec.run_vio(seq, gt_scale=False, vi_ba=True)),
+            "ate_vi_online_ba_marg": ate(ec.run_vio(
+                seq, cfg=_with(backend=dict(online_gauge="marg")), gt_scale=False,
+                vi_ba=True)),
+        }
+    if name == "4":
+        r = ec.run_vio(seq, gt_scale=True, loop_correct=True)
+        return {"ate_open_loop": ate(r), "n_loops": len(r.get("loops", [])),
+                "kf_maxerr_before": r.get("kf_err_before"),
+                "kf_maxerr_after": r.get("kf_err_after")}
+    if name == "5":
+        r = run_batch(seq, seed)
+        r.pop("poses")
+        return r
     if name == "2c":
         return {k: (float(v) if isinstance(v, (float, np.floating)) else v)
                 for k, v in ec.run_cold(seq).items()}
@@ -113,13 +200,18 @@ def main():
     if args.branch == "tpu":
         tpu_branch()
     kw, metrics = CONFIGS[args.config]
-    seq = make_synthetic_sequence(SyntheticConfig(**kw))
+    if args.config == "5":
+        seq = [make_synthetic_sequence(SyntheticConfig(**{**kw, "seed": s})) for s in range(8)]
+    else:
+        seq = make_synthetic_sequence(SyntheticConfig(**kw))
     rows = {}
     for d in range(args.first, args.first + args.draws):
         t0 = time.perf_counter()
         if args.vary == "seed":
             seeded(d)
-            rows[d] = run_config(args.config, seq)
+            rows[d] = run_config(args.config, seq, seed=d)
+        elif args.config == "5":
+            rows[d] = run_config(args.config, [perturbed(s, d) for s in seq])
         else:
             rows[d] = run_config(args.config, perturbed(seq, d))
         print(f"config {args.config} draw {d}: {rows[d]} ({time.perf_counter() - t0:.0f} s)",

@@ -115,6 +115,52 @@ def test_batch_matches_reference_run_batch_scan(seqs_ref, gt_scale):
                                       np.asarray(getattr(jfinal, name)), err_msg=name)
 
 
+def test_batch_kaze_tracks_like_reference_run_batch_scan():
+    """The KAZE analog (nonlinear scale space + hessian) batched, B = 2
+    (sequences 3 and 9), 3 frames, GT scale, default pipeline: the port's
+    run_batch_scan from the reference's converted batch state on the
+    reference's draws, against the reference's run_batch_scan (its FED
+    folded by its custom_vmap rule, `vislam_tpu/ops/fed_kernel.py`). Held on
+    the trajectory as tests/test_torch_frontends.py holds the unbatched
+    KAZE run: the reference's CPU path takes its CPU branch of the contrast
+    factor (2.7% off the TPU branch the port implements), so keypoints
+    differ from the first frame on. Each entry's ATE under 0.5 m and within
+    0.05 m of the reference's, positions within 5e-2 m, match counts within
+    15% at the median (measured: positions 4.3e-3 m, match counts 6% apart at
+    the median, the ATEs 8e-4 and 2.5e-4 m apart)."""
+    n = 3
+    seqs = _seqs(n + 1)
+    kaze = dict(scale_space="nonlinear", detector="hessian")
+    jcfg, tcfg = (dataclasses.replace(c, frontend=dataclasses.replace(c.frontend, **kaze))
+                  for c in (JSystem(), tconfig.SystemConfig()))
+    jeng = JEngine(seqs[0]["calib"], jcfg)
+    jstates = [_init(jeng, s) for s in seqs]
+    jins = [j_inputs(s) for s in seqs]
+    _, jres = j_run_batch_scan(
+        jeng, jax.tree.map(lambda *xs: jnp.stack(xs), *jstates),
+        jax.tree.map(lambda *xs: jnp.stack(xs) if xs[0].ndim > 0 else xs[0], *jins),
+        jnp.asarray(_kf0(seqs)))
+
+    teng = TEngine(seqs[0]["calib"], tcfg, device="cpu")
+    states0, inputs = batch_from_numpy([jax.tree.map(np.asarray, s) for s in jstates],
+                                       [jax.tree.map(np.asarray, i) for i in jins], "cpu")
+    keys = jax.random.split(jax.random.PRNGKey(0), len(SEEDS))
+    noises = [[(_jax_noise(k, 768), _jax_noise(jax.random.fold_in(k, 7), 768))
+               for k in (jax.random.fold_in(keys[b], m) for m in range(n))]
+              for b in range(len(SEEDS))]
+    _, tres = run_batch_scan(teng, states0, inputs, _kf0(seqs), noises=noises)
+
+    jp, tp = np.asarray(jres.p_wc), tres.p_wc.numpy()
+    assert tp.shape == jp.shape == (2, n, 3)
+    jm, tm = np.asarray(jres.num_matches), tres.num_matches.numpy()
+    np.testing.assert_allclose(tp, jp, atol=5e-2)
+    assert np.median(np.abs(tm - jm) / np.maximum(jm, 1)) < 0.15, (jm, tm)
+    for b, s in enumerate(seqs):
+        a_j = ate_rmse(jp[b], s["gt_pos"][1:n + 1], align=False)
+        a_t = ate_rmse(tp[b], s["gt_pos"][1:n + 1], align=False)
+        assert a_t < 0.5 and abs(a_t - a_j) < 0.05, (b, a_j, a_t)
+
+
 def _count_plain_calls(monkeypatch):
     """Count the kernels' plain versions as the custom ops call them on the
     CPU (one call per op call: a folded batch counts once)."""
@@ -136,9 +182,17 @@ MODES = {
     "default": (dict(), dict(), True, 8, {"response_nms": 2, "match_top2": 2, "fed_evolve": 0}),
     "kaze": (dict(scale_space="nonlinear", detector="hessian"), dict(), True, 4,
              {"response_nms": 3, "match_top2": 2, "fed_evolve": 2}),
+    "akaze": (dict(scale_space="nonlinear", detector="fast", descriptor="brief"), dict(), True,
+              4, {"response_nms": 3, "match_top2": 2, "fed_evolve": 2}),
     "slam": (dict(), dict(vi_factors=True, refine_in_step=True), False, 4,
              {"response_nms": 2, "match_top2": 3, "fed_evolve": 0}),
 }
+
+
+# AKAZE does not track on these sequences (in the reference either,
+# tests/test_torch_frontends.py): no frame reaches the match floor of a
+# vision solve, so it takes no keyframe and its matches are held instead.
+NO_KEYFRAMES = {"akaze"}
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -148,11 +202,12 @@ def test_batch_entries_equal_unbatched_runs(monkeypatch, mode):
     the same keyframes and match counts, positions within 1e-5 m (float32
     round-off of batched against single reductions), on the default config
     (GT scale), the KAZE analog (FED and the hessian response folded) and
-    in SLAM mode (GT-free, the window VI-BA in the step). Each batched step
-    calls each kernel's op once for the whole batch: one response call per
-    level (KAZE: and the contrast statistic), one FED call per cycle, 2
-    matches (main and gated rescue), and in SLAM mode the window match as
-    a third."""
+    in SLAM mode (GT-free, the window VI-BA in the step), and the AKAZE
+    analog (FED, fast and the contrast statistic folded, the BRIEF-256
+    match at a_group 1). Each batched step calls each kernel's op once for
+    the whole batch: one response call per level (KAZE, AKAZE: and the
+    contrast statistic), one FED call per cycle, 2 matches (main and gated
+    rescue), and in SLAM mode the window match as a third."""
     frontend, backend, gt_scale, n, per_step = MODES[mode]
     seqs = _seqs(n + 1)
     base = _configure(tconfig.SystemConfig(), f32=False, **backend)
@@ -165,7 +220,10 @@ def test_batch_entries_equal_unbatched_runs(monkeypatch, mode):
     final, res = run_batch_scan(eng, states0, make_batch_inputs(inputs), _kf0(seqs), seed=7)
     assert counts == {k: v * n for k, v in per_step.items()}, counts
     monkeypatch.undo()
-    assert res.is_keyframe.any(dim=1).all()
+    if mode in NO_KEYFRAMES:
+        assert not res.is_keyframe.any() and res.num_matches.median() > 30
+    else:
+        assert res.is_keyframe.any(dim=1).all()
     for b, (seq, inp) in enumerate(zip(seqs, inputs)):
         one_final, one = run_sequence_scan(eng, _init(eng, seq), inp, seed=sequence_seed(7, b))
         assert torch.equal(res.is_keyframe[b], one.is_keyframe)
