@@ -31,6 +31,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
      frames, hessian and fast on both nonlinear levels, and the BRIEF-256
      match (D = 256, a_group 1) ungated and gated, each against the
      per-frame kernel calls and the twin;
+     then phase random: the draw kernel (threefry_gumbel: the reference's
+     threefry keys and Gumbel noise) against its twin, bit for bit on the
+     card and against the CPU's twin, at the default path's call (one
+     frame key's main and rescue fields, 4 x 512 x 768), the essential
+     RANSAC's (512 x 8 x 768) and vmapped over 8 keys (one launch);
   3. paths: run_sequence_scan over a 480x752 synthetic sequence, K = 768,
      from the true initial state, for each frontend the port runs (GT
      scale) and for the GT-free modes:
@@ -50,8 +55,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
      expected times per frame. Each checks finite poses, prints frames/s
      (the median of 3 timed runs) and the
      host syncs left inside a step (sync debug mode), and runs its
-     first 10 frames again on the CPU (plain twins, same random draws) as
-     the reference the card must agree with. default, kaze, imu_scale and
+     first 10 frames again on the CPU (plain twins; both runs at seed 0,
+     no draw shipped across: the draw kernel and its twin give the same
+     bits) as the reference the card must agree with; the default path 20
+     frames, keyframes equal and positions within 1e-5 m. default, kaze, imu_scale and
      slam also hold ATE < 0.5 m, > 5 keyframes and > 90% of frames solved,
      and the GT-free paths their latch by the last frame (imu_scale
      vi_aligned, slam vi_engaged); the akaze analog does not track on this
@@ -63,7 +70,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      torch.func.vmap call of the step over B sequences, seeds 0 to B - 1):
        batch8      SystemConfig(), GT scale, 8 sequences x 40 frames
                    (cut from 60 for the script's time)
-       batch32     SystemConfig(), GT scale, 32 sequences x 24 frames
+       batch32     SystemConfig(), GT scale, 32 sequences x 16 frames (cut
+                   from 24 for the script's time)
        batch_slam  the slam path's configuration, GT-free, 4 x 10 frames
                    (cut from 60 to 30, then to 12 to make room for phase
                    eval, then to 10 for the two paths below)
@@ -76,7 +84,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      calls of 5 launches, 2 of the detector, 1 _gradmag2, 2 matches), 0
      host syncs per batched step, peak memory, each entry's ATE, and each
      entry's first 10 frames against its unbatched card run on the same
-     draws (keyframes equal, positions within 1e-3 m); batch8 and
+     keys (keyframes equal, positions within 1e-3 m); batch8 and
      batch_kaze hold every entry's ATE < 0.5 m (AKAZE does not track on
      these sequences, in the reference either);
      Then the port's CLI (`vislam_tpu_torch/cli.py`, phase cli), each
@@ -99,12 +107,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
           poses, one window match per step;
        d. a 31-frame KITTI fixture (vision-only rotation): the CLI's run,
           then its first 10 frames staged and stepped on the card and, from
-          the card's state each frame, on the CPU with the same draws:
+          the card's state each frame, on the CPU with the same key:
           keyframes equal; each frame's essential solve on the card equal
           to the CPU's on the card's own rays; positions within 1e-3 m
           where the devices' solves agree (a frame with two near-equal-
           support solutions may take the other one from the features'
-          last-bit rounding: at most 2 of 10, counted); 0 host syncs
+          last-bit rounding: at most 3 of 10, counted); 0 host syncs
           inside one step_pipelined call;
        e. --checkpoint over 31 frames, --resume to 61: the rows of the
           uninterrupted run (within 1e-5 m, keyframes equal);
@@ -150,7 +158,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
        batch_vision  run_batch_scan with vision-only rotation, 4 x 20
      each with its exact launches per frame (every other counter 0; gated:
      one gated match and no other), frames/s of one run, 0 host syncs per
-     step, its first 10 frames on the CPU with the same draws (keyframes
+     step, its first 10 frames on the CPU at the same seed (keyframes
      equal, positions at the tier-1 tolerances; oldest2 each CPU step from
      the card's state before it), its ATE beside the reference's on the
      same run (scripts/variant_reference_ate.py) and EVAL config 3's
@@ -190,8 +198,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
           at most 1% of them without a twin), each row's inlier rate
           beside MATCHABILITY.md's, natural's above 0.9;
        b. `eval/runner.py::run_vio_sequence` over the default path's first
-          20 frames at GT scale, on the card and on the CPU with the card's
-          draws: exact launches, poses within 1e-2 m, ATE < 0.5 m;
+          20 frames at GT scale, on the card and on the CPU at one seed (the
+          same draws): exact launches, poses within 1e-2 m, ATE < 0.5 m;
   4. stage times: for each long path (all but harris and dog), where a frame's wall time goes
      (each stage alone, synchronised; the GT-free paths add
      vi_align_window, slam refine_window);
@@ -205,11 +213,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the HBM rate and its operations over the peak rate of their type:
      float32 on the CUDA cores, the match's a.b as 3xTF32 on the tensor
      cores, the window match's, whose operands are bfloat16 values, as
-     one bfloat16 pass) and the share of the graph time the bound is;
+     one bfloat16 pass, the draw kernel's int32 and float64 operations on
+     the CUDA cores) and the share of the graph time the bound is;
   7. traces: for each long path, torch.profiler over 2 frames (slam:
      1; 3 before the batched nonlinear paths came), and for each batched
      path over its first step (2 on batch8 and batch32 until then) and one
-     step's RANSAC draws alone, and one frame (batched step)
+     step's RANSAC draws alone (one launch), and one frame (batched step)
      of each variant path: the device busy share, launches per frame (per
      batched step) and the kernels by device time.
 Each phase prints its own wall time ("phase ...: s"). vmap's per-example
@@ -229,7 +238,7 @@ at K = 768; the window match's one batched call; the batched rows the
 calls of one batched step at B = 8, the rows named batch_kaze and
 batch_akaze at B = 4), launches_per_call lists
 those calls' device launches, and
-library_ms is null: no single PyTorch call computes any of the three
+library_ms is null: no single PyTorch call computes any of the four
 functions. Imports nothing of JAX.
 """
 
@@ -251,6 +260,11 @@ import torch
 DEV = "cuda"
 N_FRAMES = 60      # frames of the long paths (the slam path: SLAM_FRAMES)
 N_SHORT = 10       # frames of the short paths and of each CPU reference
+# The default path's card-vs-CPU run: 20 frames at seed 0 on both devices,
+# positions within 1e-5 m (4.4e-6 m was measured on shared draws before
+# the devices drew one stream, PERF.md).
+DEFAULT_CPU_FRAMES = 20
+DEFAULT_CPU_ATOL = 1e-5
 # The slam path, cut from 60 frames to make room for phase eval: its
 # vi_engaged latch comes with its 21st keyframe (the promotion deadline,
 # vi_two_phase_max_kfs), at frame 38 of this sequence.
@@ -262,8 +276,11 @@ TILE_ROWS = (8, 16, 32)   # the response kernel's tile heights, each checked
 # and bfloat16 flop/s on the tensor cores. A kernel's bound is the larger of its
 # function's bytes (inputs read once, outputs written once) over the HBM
 # rate and its operations, each type over its own rate, summed.
+# The draw kernel's hash runs on the CUDA cores' int32 units: 132 SMs x 64
+# lanes x 1.98 GHz (the Hopper white paper's INT32 units per SM at the data
+# sheet's boost clock; the guide's table has no int32 rate).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
+PEAK_FLOP_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int32": 16.7e12}
 # Float32 operations per output pixel of each response family, counted from
 # the function (vislam_tpu/ops/harris_kernel.py `_response_vmem` and the
 # 5x5 NMS) evaluated as written: an add, subtract, multiply, divide, min,
@@ -293,6 +310,14 @@ FED_FLOP_PER_PX_STEP = 61
 # bfloat16 rate.
 MATCH_FLOP_PER_PAIR = 7
 GATE_FLOP_PER_PAIR = 6
+# threefry_gumbel's int32 operations per value, counted from the function
+# (utils/prng.py): the hash's 2 key adds, 20 rounds of add, rotate and xor,
+# 5 injections of 2 adds, then the words' xor, the shift and the OR into
+# the exponent: 75. Its bound is these against the bytes written. The two
+# logs are left out: the function needs two float32 logs (JAX's gumbel),
+# a few operations a value on pipes that issue beside the int32 ones; the
+# port's float64 series is its choice, for bit-equal logs on both devices.
+THREEFRY_INT32_OPS_PER_VALUE = 75
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,23 +336,29 @@ class Path:
     latch: str = ""
 
 
+# Every path's frame draws its RANSAC noise in one threefry_gumbel launch
+# (main and rescue fields together).
+DRAW = {"threefry_gumbel": 1}
 PATHS = {
-    "default": Path({"shi_tomasi": 2, "match_top2": 2}),
-    "kaze": Path({"fed_evolve": 2, "hessian": 2, "_gradmag2": 1, "match_top2": 2},
+    "default": Path({"shi_tomasi": 2, "match_top2": 2, **DRAW}),
+    "kaze": Path({"fed_evolve": 2, "hessian": 2, "_gradmag2": 1, "match_top2": 2, **DRAW},
                  frontend=dict(scale_space="nonlinear", detector="hessian")),
-    "akaze": Path({"fed_evolve": 2, "fast": 2, "_gradmag2": 1, "match_top2": 2},
+    "akaze": Path({"fed_evolve": 2, "fast": 2, "_gradmag2": 1, "match_top2": 2, **DRAW},
                   accuracy=False, frontend=dict(scale_space="nonlinear", detector="fast",
                                                 descriptor="brief")),
-    "harris": Path({"harris": 2, "match_top2": 2}, N_SHORT, False,
+    "harris": Path({"harris": 2, "match_top2": 2, **DRAW}, N_SHORT, False,
                    frontend=dict(detector="harris")),
-    "dog": Path({"dog": 2, "match_top2": 2}, N_SHORT, False, frontend=dict(detector="dog")),
+    "dog": Path({"dog": 2, "match_top2": 2, **DRAW}, N_SHORT, False,
+                frontend=dict(detector="dog")),
     # Open loop, vi_engaged needs window excitation >= 1.5 m/s, which this
     # sequence does not reach (in the reference either): its latch is
     # vi_aligned. The slam path also engages by the promotion deadline.
-    "imu_scale": Path({"shi_tomasi": 2, "match_top2": 2}, gt_scale=False, latch="vi_aligned"),
+    "imu_scale": Path({"shi_tomasi": 2, "match_top2": 2, **DRAW}, gt_scale=False,
+                      latch="vi_aligned"),
     # Per frame: the per-frame and guided matches, then the window match
     # (the one batched call).
-    "slam": Path({"shi_tomasi": 2, "match_top2": 3, "match_top2_batched": 1}, SLAM_FRAMES,
+    "slam": Path({"shi_tomasi": 2, "match_top2": 3, "match_top2_batched": 1, **DRAW},
+                 SLAM_FRAMES,
                  gt_scale=False, latch="vi_engaged",
                  backend=dict(vi_factors=True, refine_in_step=True)),
 }
@@ -360,22 +391,24 @@ class BatchPath:
     note: str = ""
 
 
-# Per batched step: one response launch per level and the two matches
-# (main, gated rescue; A per pair) for the whole batch; SLAM mode adds the
-# window match (an A per sequence shared by its W slots).
+# Per batched step: one response launch per level, the two matches (main,
+# gated rescue; A per pair) and the draws (every sequence's keys folded
+# into one launch) for the whole batch; SLAM mode adds the window match
+# (an A per sequence shared by its W slots).
 _BATCH_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2,
-               "match_top2_gated": 1}
+               "match_top2_gated": 1, **DRAW}
 NONLINEAR_B = 4     # sequences of batch_kaze and batch_akaze
 _NONLINEAR_STEP = {"fed_evolve": 2, "_gradmag2": 1, "match_top2": 2, "match_top2_per_pair": 2,
-                   "match_top2_gated": 1}
+                   "match_top2_gated": 1, **DRAW}
 BATCH_PATHS = {
     "batch8": BatchPath(8, 40, _BATCH_STEP, accuracy=True, trace_steps=1,
                         note="cut in depth from 60 frames to 40: the script's "
                              "time, the host varying ~30% between calls; traced over 1 "
                              "step (was 2) to make room for batch_kaze and batch_akaze"),
-    "batch32": BatchPath(32, 24, _BATCH_STEP, trace_steps=1,
-                         note="traced over 1 step (was 2) to make room for batch_kaze and "
-                              "batch_akaze"),
+    "batch32": BatchPath(32, 16, _BATCH_STEP, trace_steps=1,
+                         note="cut in depth from 24 frames to 16 to pay for phase random "
+                              "and the default path's 20-frame CPU run; traced over 1 step "
+                              "(was 2) to make room for batch_kaze and batch_akaze"),
     "batch_slam": BatchPath(4, 10, {**_BATCH_STEP, "match_top2": 3, "match_top2_batched": 1},
                             backend=dict(vi_factors=True, refine_in_step=True), gt_scale=False,
                             trace_steps=1,
@@ -490,7 +523,7 @@ def _measure(label, plain, kernel, nbytes, work, launches) -> dict:
     its operations (`work`: (count, type in PEAK_FLOP_PER_S, how counted)
     terms), and the device launches it must make."""
     flop_text = " + ".join(f"{text} = {n / 1e6:.1f} MFLOP {kind} / "
-                           f"{PEAK_FLOP_PER_S[kind] / 1e12:.0f} TFLOP/s"
+                           f"{PEAK_FLOP_PER_S[kind] / 1e12:g} TFLOP/s"
                            for n, kind, text in work)
     return dict(label=label, plain=plain, kernel=kernel, nbytes=nbytes, flop_text=flop_text,
                 expected=launches, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -520,6 +553,8 @@ def timing_phase(rows) -> None:
         if m["launches"] != m["expected"]:
             _fail(f"{m['label']}: {m['launches']} device launches per call, expected "
                   f"{m['expected']}")
+        if m.get("count_plain"):
+            m["plain_launches"] = _launches_per_call(m["plain"], 10 ** 9, sessions=2)
     for m in _calls(rows):
         m["graph_ms"] = _graph_ms(m["kernel"])
 
@@ -529,9 +564,10 @@ def report_phase(rows) -> None:
     for m in _calls(rows):
         n = m["launches"]
         bound = max(m["bytes_ms"], m["ops_ms"])
+        twin = (f" (the plain twin: {m['plain_launches']})" if "plain_launches" in m else "")
         print(f"kernel {m['label']}: back-to-back {m['ms'] * 1e3:.2f} us, graph "
               f"{m['graph_ms'] * 1e3:.2f} us, plain {m['plain_ms'] * 1e3:.1f} us; {n} launches "
-              f"per call; bound {bound * 1e3:.3f} us = max({m['nbytes'] / 1e6:.3f} MB / 3.35 TB/s, "
+              f"per call{twin}; bound {bound * 1e3:.3f} us = max({m['nbytes'] / 1e6:.3f} MB / 3.35 TB/s, "
               f"{m['flop_text']}), "
               f"{'bytes' if m['bytes_ms'] >= m['ops_ms'] else 'operations'}; "
               f"{bound / m['graph_ms']:.1%} of the graph time", flush=True)
@@ -1213,6 +1249,89 @@ def _batch_nonlinear_rows(seqs, gate_px):
     return rows
 
 
+def _threefry_check(label, keys, index, paths, size, vmapped=False):
+    """The draw kernel's fields against its twin on the card and on the
+    CPU, bit for bit (the twin's bits too: card against CPU); vmapped, as
+    the batched step calls it (one launch for every key) against the twin
+    on all the keys."""
+    from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel, threefry_gumbel_plain
+    from vislam_tpu_torch.utils import prng
+
+    if vmapped:
+        before = threefry_gumbel.launches
+        out = torch.func.vmap(lambda k, i: threefry_gumbel(k[None], i.reshape(1), paths,
+                                                           size)[0],
+                              in_dims=(0, None))(keys, index[0])
+        if threefry_gumbel.launches - before != 1:
+            _fail(f"threefry_gumbel {label}: {threefry_gumbel.launches - before} launches "
+                  f"under vmap, expected 1")
+        index = index[:1].expand(keys.shape[0]).contiguous()
+    else:
+        out = threefry_gumbel(keys, index, paths, size)
+    torch.cuda.synchronize()
+    plain = threefry_gumbel_plain(keys, index, paths, size)
+    cpu = threefry_gumbel_plain(keys.cpu(), index.cpu(), paths, size)
+    k = prng.derive_keys(keys, [index] + list(paths[0]))
+    bits_equal = torch.equal(prng.random_bits(k, size).cpu(),
+                             prng.random_bits(k.cpu(), size))
+    err = (out - plain).abs().max().item()
+    same = torch.equal(out, plain) and torch.equal(out.cpu(), cpu)
+    print(f"kernel threefry_gumbel {label}: {tuple(out.shape)}; fields equal to the twin's on "
+          f"the card and on the CPU bit for bit: {same}; the twin's bits card = CPU: "
+          f"{bits_equal}; max_abs_err {err:.3e}", flush=True)
+    if not (same and bits_equal):
+        _fail(f"threefry_gumbel {label} disagrees with its twin")
+    return err
+
+
+def _threefry_measure(label, keys, index, paths, size, plain_launches=False):
+    from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel, threefry_gumbel_plain
+
+    n = keys.shape[0] * len(paths) * int(np.prod(size))
+    m = _measure(label, lambda: threefry_gumbel_plain(keys, index, paths, size),
+                 lambda: threefry_gumbel(keys, index, paths, size),
+                 4 * n + 8 * keys.shape[0] + 4 * index.numel(),
+                 [(THREEFRY_INT32_OPS_PER_VALUE * n, "int32",
+                   f"{THREEFRY_INT32_OPS_PER_VALUE} int32 ops x {n} values")], 1)
+    m["count_plain"] = plain_launches
+    return m
+
+
+def random_phase(cfg_default):
+    """The draw kernel (threefry_gumbel) against its twin at the main path's
+    shapes: one frame's main and rescue fields (4 x 512 x 768 from the
+    frame key), the essential RANSAC's (512 x 8 x 768) and the batched
+    step's 8 keys under vmap; the kernel table's rows of the default path
+    (one frame's call; the essential's as another shape) and of batch8."""
+    from vislam_tpu_torch.engine import batch_keys
+    from vislam_tpu_torch.engine.engine import ESSENTIAL_PATHS, MAIN_PATHS, RESCUE_PATHS
+    from vislam_tpu_torch.utils import prng
+
+    H, M = cfg_default.backend.ransac_hyps, cfg_default.frontend.max_keypoints
+    frame = MAIN_PATHS + RESCUE_PATHS
+    base = prng.key_tensor(prng.prng_key(0)[None], DEV)
+    index = torch.tensor([3], dtype=torch.int32, device=DEV)
+    keys8 = prng.key_tensor(batch_keys(0, BATCH), DEV)
+    index8 = index.expand(BATCH).contiguous()
+    err = max(_threefry_check(f"frame key, main and rescue, {len(frame)} x {H} x {M}", base,
+                              index, frame, (H, M)),
+              _threefry_check(f"essential {H} x 8 x {M}", base, index, ESSENTIAL_PATHS,
+                              (H, 8, M)),
+              _threefry_check(f"vmapped over {BATCH} keys", keys8, index, frame, (H, M),
+                              vmapped=True))
+    source = "vislam_tpu_torch/ops/csrc/threefry_gumbel.cu"
+    replaces = "vislam_tpu/frontend/pose.py:115 (jax.random draws, XLA-fused; no Pallas kernel)"
+    one = _row("threefry_gumbel", "threefry_gumbel", source, replaces, err,
+               [_threefry_measure(f"threefry_gumbel frame, {len(frame)} x {H} x {M}", base,
+                                  index, frame, (H, M), plain_launches=True)],
+               [_threefry_measure(f"threefry_gumbel essential, {H} x 8 x {M}", base, index,
+                                  ESSENTIAL_PATHS, (H, 8, M))])
+    batch = _row("threefry_gumbel:batch8", "threefry_gumbel", source, replaces, err,
+                 [_threefry_measure(f"threefry_gumbel batch8, {BATCH} x {len(frame)} x {H} x "
+                                    f"{M}", keys8, index8, frame, (H, M))])
+    return [one, batch]
+
+
 def kernel_phase(seq, seqs, cfg_default):
     """Each kernel against its plain twin at main-path shapes and data."""
     # argmin keeps the first index on ties on the card, as on the CPU.
@@ -1240,7 +1359,8 @@ def kernel_phase(seq, seqs, cfg_default):
 def stage_times(name, eng, state, inputs):
     """Where a frame's wall time goes: each stage alone, synchronised."""
     from vislam_tpu_torch.engine.bootstrap import vi_align_window
-    from vislam_tpu_torch.engine.engine import frame_generator
+    from vislam_tpu_torch.engine.engine import (MAIN_PATHS, RESCUE_PATHS, FrameKey, draw_fields,
+                                                frame_key)
     from vislam_tpu_torch.engine.refine import refine_window
     from vislam_tpu_torch.frontend.detect import detect_keypoints
     from vislam_tpu_torch.frontend.features import extract_features
@@ -1250,14 +1370,17 @@ def stage_times(name, eng, state, inputs):
     from vislam_tpu_torch.frontend.pyramid import build_pyramid
     from vislam_tpu_torch.inertial.filters import madgwick_scan
     from vislam_tpu_torch.inertial.preintegration import preintegrate
+    from vislam_tpu_torch.utils import prng
 
     fe = eng.cfg.frontend
     img, imu, dt = inputs.images[5], inputs.imu[5], inputs.imu_dt[5]
     kf = state.kf_feat
     feat = extract_features(img, fe, eng.geom)
     rays = torch.nn.functional.normalize(torch.randn(kf.uv.shape[0], 3, device=DEV), dim=-1)
-    noise = gumbel_noise(frame_generator(0, 0, DEV), eng.cfg.backend.ransac_hyps,
-                         kf.uv.shape[0], DEV)
+    H, M = eng.cfg.backend.ransac_hyps, kf.uv.shape[0]
+    noise = gumbel_noise(prng.key_tensor(frame_key(0, 0), DEV), H, M)
+    key = FrameKey(prng.key_tensor(prng.prng_key(0), DEV),
+                   torch.zeros((), dtype=torch.int32, device=DEV))
     R = torch.eye(3, device=DEV)
     img_t = img.to(getattr(torch, fe.image_dtype))
     n_lv = min(fe.num_levels, fe.levels_used)
@@ -1293,6 +1416,8 @@ def stage_times(name, eng, state, inputs):
             lambda: extract_features(img, fe, eng.geom),
         "match_descriptors (ungated)": lambda: match_descriptors(
             kf.desc, kf.mask, feat.desc, feat.mask),
+        f"draws (threefry_gumbel, main and rescue, 4 x {H} x {M})": lambda: draw_fields(
+            key, MAIN_PATHS + RESCUE_PATHS, (H, M)),
         "ransac_translation (512 x 768)": lambda: ransac_translation(
             rays, rays.roll(1, 0), R, kf.mask, uv_i=kf.uv, dispersion_pow=1.25, noise=noise),
     }
@@ -1374,9 +1499,7 @@ def path_phase(name, seq):
     long path, what phases 4 and 7 profile (engine, state, inputs; else
     None)."""
     from vislam_tpu_torch.engine import VIOEngine, make_sequence_inputs, run_sequence_scan
-    from vislam_tpu_torch.engine.engine import frame_generator
     from vislam_tpu_torch.eval import ate_rmse
-    from vislam_tpu_torch.frontend.pose import gumbel_noise
 
     path = PATHS[name]
     N = path.frames
@@ -1457,32 +1580,30 @@ def path_phase(name, seq):
         _fail(f"{name}: {len(syncs)} host syncs inside a step")
 
     # Reference on a small input: the first frames again on the CPU (the
-    # plain twins), with the same random draws on both devices.
-    n_ref = N_SHORT
-    cpu = VIOEngine(seq["calib"], cfg, device="cpu")
-    M = cfg.frontend.max_keypoints
-    H = cfg.backend.ransac_hyps
-    noises = []
-    for n in range(n_ref):
-        g = frame_generator(0, n, "cpu")
-        noises.append((gumbel_noise(g, H, M, "cpu"), gumbel_noise(g, H, M, "cpu")))
+    # plain twins), both runs at seed 0, each drawing under its own keys
+    # (the card's draw kernel and the CPU's twin give the same bits; no
+    # draw is shipped across). The default path runs 20 frames, held at
+    # 1e-5 m: its card and CPU runs differ only by arithmetic.
+    n_ref = DEFAULT_CPU_FRAMES if name == "default" else N_SHORT
+    cpu = VIOEngine(seq["calib"], cfg, seed=0, device="cpu")
     sub = inputs._replace(images=inputs.images[:n_ref], imu=inputs.imu[:n_ref],
                           imu_dt=inputs.imu_dt[:n_ref], gt_pos=inputs.gt_pos[:n_ref])
-    _, r_gpu = run_sequence_scan(eng, init(eng), sub,
-                                 noises=[(a.to(DEV), b.to(DEV)) for a, b in noises])
+    _, r_gpu = run_sequence_scan(eng, init(eng), sub, seed=0)
     cpu_inputs = sub._replace(**{k: getattr(sub, k).cpu()
                                  for k in ("images", "imu", "imu_dt", "gt_pos")})
-    _, r_cpu = run_sequence_scan(cpu, init(cpu), cpu_inputs, noises=noises)
+    _, r_cpu = run_sequence_scan(cpu, init(cpu), cpu_inputs, seed=0)
     kf_g, kf_c = r_gpu.is_keyframe.cpu(), r_cpu.is_keyframe
     dp = (r_gpu.p_wc.cpu() - r_cpu.p_wc).abs().max().item()
     dm = (r_gpu.num_matches.cpu() - r_cpu.num_matches).abs().max().item()
-    print(f"path {name}: card vs CPU plain twins over {n_ref} frames: keyframes equal "
-          f"{bool(torch.equal(kf_g, kf_c))}, max |dp_wc| {dp:.3e} m, max |d matches| {dm}",
-          flush=True)
+    print(f"path {name}: card vs CPU plain twins over {n_ref} frames at seed 0, no draws "
+          f"shipped: keyframes equal {bool(torch.equal(kf_g, kf_c))}, max |dp_wc| {dp:.3e} m, "
+          f"max |d matches| {dm}", flush=True)
     # The card's kernels and the CPU's plain twins round differently, which
     # can move a subpixel position or flip a near-tied match; a keyframe
-    # decision or a centimetre of position cannot.
-    if not torch.equal(kf_g, kf_c) or dp > 1e-2 or dm > 5:
+    # decision or a centimetre of position cannot. On the default path the
+    # two runs are held at 1e-5 m.
+    bound = DEFAULT_CPU_ATOL if name == "default" else 1e-2
+    if not torch.equal(kf_g, kf_c) or dp > bound or dm > 5:
         _fail(f"{name}: the card's run disagrees with the CPU plain twins")
     return launches, ((eng, state, inputs) if N > N_SHORT else None)
 
@@ -1503,7 +1624,7 @@ def batch_path_phase(name, seqs):
         make_sequence_inputs,
         run_batch_scan,
         run_sequence_scan,
-        sequence_seed,
+        sequence_key,
         stack_states,
     )
     from vislam_tpu_torch.eval import ate_rmse
@@ -1576,14 +1697,14 @@ def batch_path_phase(name, seqs):
         _fail(f"{name}: {len(syncs)} host syncs inside a batched step")
 
     # Each entry against the port's own unbatched run on the card, the
-    # same draws (sequence_seed), over the first frames.
+    # same keys (sequence_key), over the first frames.
     n_ref, dp, kf_equal = N_SHORT, 0.0, True
     for b, s in enumerate(seqs):
         one_in = per_seq[b]._replace(images=per_seq[b].images[:n_ref],
                                      imu=per_seq[b].imu[:n_ref],
                                      imu_dt=per_seq[b].imu_dt[:n_ref],
                                      gt_pos=per_seq[b].gt_pos[:n_ref])
-        _, one = run_sequence_scan(eng, init(s), one_in, seed=sequence_seed(0, b))
+        _, one = run_sequence_scan(eng, init(s), one_in, key=sequence_key(0, b))
         kf_equal &= torch.equal(one.is_keyframe, res.is_keyframe[b, :n_ref])
         dp = max(dp, (one.p_wc - res.p_wc[b, :n_ref]).abs().max().item())
     print(f"path {name}: entries vs unbatched card runs over {n_ref} frames: keyframes equal "
@@ -1595,17 +1716,22 @@ def batch_path_phase(name, seqs):
 
 def trace_batch_path(name, eng, state0, inputs, kf0):
     """The trace of a batched path's first steps, then of one step's RANSAC
-    draws alone (B generators, made before the vmap; their launches are
-    part of the step's)."""
-    from vislam_tpu_torch.engine import run_batch_scan, sequence_seed
-    from vislam_tpu_torch.engine.batch import batch_noises
+    draws alone (every sequence's keys in one launch, as the vmapped step
+    makes it; its launch is part of the step's)."""
+    from vislam_tpu_torch.engine import batch_keys, run_batch_scan
+    from vislam_tpu_torch.engine.engine import MAIN_PATHS, RESCUE_PATHS
+    from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+    from vislam_tpu_torch.utils import prng
 
     n = BATCH_PATHS[name].trace_steps
     sub = _first(inputs, n)
     _trace(name, n, lambda: run_batch_scan(eng, state0, sub, kf0), "batched step")
-    seeds = [sequence_seed(0, b) for b in range(inputs.images.shape[0])]
-    _trace(f"{name} draws", 1, lambda: batch_noises(eng, seeds, 0, state0.kf_feat.uv.shape[-2]),
-           "batched step")
+    B = inputs.images.shape[0]
+    keys = prng.key_tensor(batch_keys(0, B), DEV)
+    index = torch.zeros(B, dtype=torch.int32, device=DEV)
+    size = (eng.cfg.backend.ransac_hyps, state0.kf_feat.uv.shape[-2])
+    _trace(f"{name} draws", 1, lambda: threefry_gumbel(keys, index, MAIN_PATHS + RESCUE_PATHS,
+                                                        size), "batched step")
 
 
 def refine_check(eng, state) -> None:
@@ -1763,22 +1889,28 @@ def _rotation_angle(A, B) -> float:
 def _kitti_card_vs_cpu(path, xml):
     """The KITTI run's first N_SHORT frames (stage_dataset), stepped in the
     CLI's configuration (vision-only rotation, one level) on the card and,
-    frame by frame from the card's state, on the CPU, with the same draws
-    (drawn on the CPU). Each frame's essential RANSAC is solved again on
+    frame by frame from the card's state, on the CPU, with the same key
+    (the card's kernel and the CPU's twin draw the same bits, with no draws
+    shipped across). Each frame's essential RANSAC is solved again on
     the CPU from the card's own rays: it must give the card's solve
     (inliers equal, rotation within 1e-4 rad, t_dir within 1e-3). Keyframes
     must be equal; where the two devices' solves agree, positions within
-    1e-3 m. Where they do not, the frame has two solutions of near-equal
-    support and the features' last-bit rounding (kernel against twin)
-    picks one or the other: such frames are counted, at most 2 of 10
-    (frames 2 and 5 on every run of this fixture).
+    1e-3 m. Where they do not, the frame must have two solutions of
+    near-equal support, which the features' last-bit rounding (kernel
+    against twin) picks one or the other of: each such frame's card and CPU
+    inlier counts must be within 1. Their number is held too, at most 3 of
+    10: with the seed fixed, the frames near a tie are fixed by the data
+    (frames 5, 7 and 9 on every card run so far; 2 and 5 under the torch
+    generator's draws the check used before), so a fourth is a change of
+    the step, not of round-off.
     Then the host syncs of one step_pipelined."""
     import vislam_tpu_torch.engine.engine as tengine
     from vislam_tpu_torch.calib import load_opencv_xml
     from vislam_tpu_torch.data import KittiDataset
     from vislam_tpu_torch.engine import VIOEngine, stage_dataset
-    from vislam_tpu_torch.engine.engine import frame_generator
-    from vislam_tpu_torch.frontend.essential import gumbel_hypotheses, ransac_essential
+    from vislam_tpu_torch.engine.engine import FrameKey
+    from vislam_tpu_torch.frontend.essential import ransac_essential
+    from vislam_tpu_torch.utils import prng
 
     cfg = _config(dict(levels_used=1), {})
     cfg = dataclasses.replace(cfg, engine=dataclasses.replace(cfg.engine, vision_rotation=True))
@@ -1788,8 +1920,11 @@ def _kitti_card_vs_cpu(path, xml):
     st = card.initialize(fw0.image, q_wb0=fw0.gt_quat, p_w0=fw0.gt_pos)
     inputs = stage_dataset(ds, 2, 2 + N_SHORT, device=DEV)
     kf_gt = torch.as_tensor(fw0.gt_pos, dtype=torch.float32).to(DEV)
-    M, H = st.kf_feat.uv.shape[0], cfg.backend.ransac_hyps
     solves = []
+
+    def key_on(dev, n):
+        return FrameKey(prng.key_tensor(prng.prng_key(0), dev),
+                        torch.tensor(n, dtype=torch.int32).to(dev))
 
     def spy(*args, **kw):
         out = ransac_essential(*args, **kw)
@@ -1800,13 +1935,12 @@ def _kitti_card_vs_cpu(path, xml):
     try:
         kf_eq, dp_agree, ambiguous, solve_err = True, 0.0, [], [0.0, 0.0]
         for n in range(N_SHORT):
-            noise = gumbel_hypotheses(frame_generator(0, n, "cpu"), H, M, "cpu")
             gt_norm = torch.linalg.vector_norm(inputs.gt_pos[n] - kf_gt)
             frame = [inputs.images[n], inputs.imu[n], inputs.imu_dt[n]]
-            st_next, r_g = card._step(st, *frame, gt_norm, None, noise.to(DEV), None)
+            st_next, r_g = card._step(st, *frame, gt_norm, key_on(DEV, n))
             args, kw, s_g = solves[-1]
             _, r_c = cpu._step(_to_device(st, "cpu"), *[x.cpu() for x in frame], gt_norm.cpu(),
-                               None, noise, None)
+                               key_on("cpu", n))
             s_c = solves[-1][2]
             s_x = ransac_essential(*[x.cpu() for x in args],
                                    **{k: v.cpu() if torch.is_tensor(v) else v
@@ -1821,18 +1955,19 @@ def _kitti_card_vs_cpu(path, xml):
             if float((s_g.t_dir.cpu() - s_c.t_dir).abs().max()) < 1e-3:
                 dp_agree = max(dp_agree, float((r_g.p_wc.cpu() - r_c.p_wc).abs().max()))
             else:
-                ambiguous.append(n)
+                ambiguous.append((n, int(s_g.num_inliers), int(s_c.num_inliers)))
             kf_gt = torch.where(r_g.is_keyframe, inputs.gt_pos[n], kf_gt)
             st = st_next
     finally:
         tengine.ransac_essential = ransac_essential
     print(f"cli kitti: card vs CPU over {N_SHORT} frames, each from the card's state with "
-          f"the same draws: keyframes equal {kf_eq}; the card's essential solve against the "
+          f"the same key: keyframes equal {kf_eq}; the card's essential solve against the "
           f"CPU's on the card's rays: inliers equal, max rotation {solve_err[0]:.2e} rad, "
           f"max |d t_dir| {solve_err[1]:.2e}; where the devices' solves agree max |dp_wc| "
-          f"{dp_agree:.3e} m; frames with another near-equal-support solve {ambiguous}",
-          flush=True)
-    if not kf_eq or not dp_agree <= 1e-3 or len(ambiguous) > 2:
+          f"{dp_agree:.3e} m; frames with another near-equal-support solve (frame, card "
+          f"inliers, CPU inliers) {ambiguous}", flush=True)
+    near_tie = all(abs(card_n - cpu_n) <= 1 for _, card_n, cpu_n in ambiguous)
+    if not kf_eq or not dp_agree <= 1e-3 or not near_tie or len(ambiguous) > 3:
         _fail("cli kitti: the card's run disagrees with the CPU's")
     fw = ds.frame_window(2)
     _pipelined_syncs("kitti", card, st, fw.image, fw.imu, fw.imu_dt, fw.gt_pos)
@@ -2345,7 +2480,7 @@ class VariantPath:
 # rescue (gated match: the main match only); the in-step window refine
 # adds the window match (one batched call).
 _VARIANT_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2,
-                 "match_top2_gated": 1}
+                 "match_top2_gated": 1, **DRAW}
 _WINDOW = {"match_top2": 3, "match_top2_batched": 1}
 # EVAL config 3's rows regenerated on the JAX package at this tree's parent
 # (scripts/variant_reference_ate.py: scripts/eval_configs.py's run_vio).
@@ -2353,7 +2488,8 @@ EVAL3 = {"3 plain": 0.1076, "3 +photometric": 0.1040, "3b marg gauge": 0.1515}
 VARIANT_PATHS = {
     "oriented": VariantPath(_VARIANT_STEP, 60, frontend=dict(oriented=True), ref_ate=0.3092),
     "gated": VariantPath({"shi_tomasi": 2, "match_top2": 1, "match_top2_per_pair": 1,
-                          "match_top2_gated": 1}, 60, frontend=dict(guided_gate_px=30.0),
+                          "match_top2_gated": 1, **DRAW}, 60,
+                         frontend=dict(guided_gate_px=30.0),
                          ref_ate=0.2438),
     # The refine amplifies round-off (the reference against itself moves
     # 1.25e-2 m under a 2-ulp image change): tier-1's 2.5e-2 m.
@@ -2377,7 +2513,7 @@ VARIANT_PATHS = {
 BATCH_VISION = (4, 20)      # sequences (seeds 0 to 3), frames
 BATCH_VISION_REF_ATE = (0.9977, 1.1544, 1.0870, 0.8511)
 # Per batched step: one level, the main match, no rescue.
-BATCH_VISION_STEP = {"shi_tomasi": 1, "match_top2": 1, "match_top2_per_pair": 1}
+BATCH_VISION_STEP = {"shi_tomasi": 1, "match_top2": 1, "match_top2_per_pair": 1, **DRAW}
 
 
 def _variant_config(vp):
@@ -2397,20 +2533,26 @@ def _launches_equal(name, launches, per, steps) -> None:
                   f"{per.get(counter, 0)} per step)")
 
 
-def _cpu_noises(eng, n):
-    from vislam_tpu_torch.engine.engine import frame_generator
-    from vislam_tpu_torch.frontend.pose import gumbel_noise
+def _frame_draws(eng, n):
+    """The main and rescue draws of frames 0 to n - 1 at seed 0, made on the
+    CPU by the draw op's twin (the card's kernel draws the same bits)."""
+    from vislam_tpu_torch.engine.engine import MAIN_PATHS, RESCUE_PATHS, FrameKey, draw_fields
+    from vislam_tpu_torch.utils import prng
 
     H, M = eng.cfg.backend.ransac_hyps, eng.cfg.frontend.max_keypoints
+    base = prng.key_tensor(prng.prng_key(0), "cpu")
     out = []
     for k in range(n):
-        g = frame_generator(0, k, "cpu")
-        out.append((gumbel_noise(g, H, M, "cpu"), gumbel_noise(g, H, M, "cpu")))
+        f = draw_fields(FrameKey(base, torch.tensor(k, dtype=torch.int32)),
+                        MAIN_PATHS + RESCUE_PATHS, (H, M))
+        out.append((f[:2], f[2:]))
     return out
 
 
 def _variant_cpu_check(name, vp, eng, init, inputs) -> None:
-    """The first N_SHORT frames on the CPU with the card's draws (with
+    """The first N_SHORT frames on the CPU at the card's seed, so with its
+    draws (a run of the whole prefix draws under its own keys; a run one
+    frame at a time is given each frame's draws, made on the CPU) (with
     vp.check_lm_iters, both devices at that many LM iterations)."""
     from vislam_tpu_torch.engine import VIOEngine, run_sequence_scan
 
@@ -2420,17 +2562,16 @@ def _variant_cpu_check(name, vp, eng, init, inputs) -> None:
             cfg.backend, lm_iters=vp.check_lm_iters))
         eng = VIOEngine(eng.calib, cfg, device=DEV)
     cpu = VIOEngine(eng.calib, cfg, device="cpu")
-    noises = _cpu_noises(eng, N_SHORT)
     sub = _first_frames(inputs, N_SHORT)
     cpu_in = sub._replace(**{k: getattr(sub, k).cpu()
                              for k in ("images", "imu", "imu_dt", "gt_pos")})
     if vp.cpu_check == "scan":
-        _, r_gpu = run_sequence_scan(eng, init(eng), sub,
-                                     noises=[(a.to(DEV), b.to(DEV)) for a, b in noises])
-        _, r_cpu = run_sequence_scan(cpu, init(cpu), cpu_in, noises=noises)
+        _, r_gpu = run_sequence_scan(eng, init(eng), sub)
+        _, r_cpu = run_sequence_scan(cpu, init(cpu), cpu_in)
         kf_g, kf_c = r_gpu.is_keyframe.cpu(), r_cpu.is_keyframe
         dp = (r_gpu.p_wc.cpu() - r_cpu.p_wc).abs().max().item()
     else:
+        noises = _frame_draws(eng, N_SHORT)
         state, kf_gt = init(eng), init(eng).p_wc.clone()
         kf_g, kf_c, dps = [], [], []
         for k in range(N_SHORT):
@@ -2519,7 +2660,7 @@ def batch_vision_path(seqs) -> tuple:
     entry against its unbatched card run."""
     from vislam_tpu_torch.engine import (
         VIOEngine, make_batch_inputs, make_sequence_inputs, run_batch_scan, run_sequence_scan,
-        sequence_seed, stack_states,
+        sequence_key, stack_states,
     )
     from vislam_tpu_torch.eval import ate_rmse
 
@@ -2572,7 +2713,7 @@ def batch_vision_path(seqs) -> tuple:
     # counted, at most 2, and positions are held up to an entry's first.
     other, dp, kf_equal = 0, 0.0, True
     for b, s in enumerate(seqs):
-        _, one = run_sequence_scan(eng, init(s), per_seq[b], seed=sequence_seed(0, b))
+        _, one = run_sequence_scan(eng, init(s), per_seq[b], key=sequence_key(0, b))
         kf_equal &= torch.equal(one.is_keyframe, res.is_keyframe[b])
         diff = (one.t_dir_cam - res.t_dir_cam[b]).abs().amax(-1).cpu() > 1e-3
         if (diff & ((one.num_inliers - res.num_inliers[b]).abs().cpu() > 3)).any():
@@ -3073,10 +3214,7 @@ def _eval_match_check() -> None:
 
 
 def _eval_runner_check(seq) -> None:
-    from vislam_tpu_torch.engine import VIOEngine
-    from vislam_tpu_torch.engine.engine import frame_generator
     from vislam_tpu_torch.eval import run_vio_sequence
-    from vislam_tpu_torch.frontend.pose import gumbel_noise
 
     n = EVAL_RUNNER_FRAMES + 1
     run_vio_sequence(seq, n_frames=3, device=DEV)    # first use
@@ -3095,25 +3233,14 @@ def _eval_runner_check(seq) -> None:
             _fail(f"eval run_vio_sequence: {counter} launched {got} times over {n - 1} frames "
                   f"(expected {expected.get(counter, 0)})")
 
-    # The CPU run with the card's draws (each frame's generator on the card).
-    plain = VIOEngine.step
-
-    def step(self, state, image, imu, imu_dt, gt_t_norm=-1.0):
-        g = frame_generator(self.seed, self._step_counter, DEV)
-        H, M = self.cfg.backend.ransac_hyps, self.cfg.frontend.max_keypoints
-        draws = [gumbel_noise(g, H, M, DEV).cpu() for _ in range(2)]
-        return plain(self, state, image, imu, imu_dt, gt_t_norm, *draws)
-
-    VIOEngine.step = step
-    try:
-        cpu = run_vio_sequence(seq, n_frames=n, device="cpu")
-    finally:
-        VIOEngine.step = plain
+    # The CPU run at the same seed: the card's draws, made by the CPU's twin.
+    cpu = run_vio_sequence(seq, n_frames=n, device="cpu")
     dp = float(np.abs(card["poses"] - cpu["poses"]).max())
     print(f"eval b: run_vio_sequence, {n - 1} frames GT scale, {wall:.2f} s on the card "
           f"({(n - 1) / wall:.2f} frames/s with its per-frame fetch); launches "
           f"{_nonzero(launches)} (exact); ATE {card['ate']:.4f} m (CPU {cpu['ate']:.4f}); "
-          f"card vs CPU with the card's draws: max |dp| {dp:.3e} m (tolerance 1e-2)", flush=True)
+          f"card vs CPU at one seed (the same draws): max |dp| {dp:.3e} m (tolerance 1e-2)",
+          flush=True)
     if not (np.isfinite(card["poses"]).all() and dp <= 1e-2 and card["ate"] < 0.5):
         _fail("eval run_vio_sequence: the card's run disagrees with the CPU's or ATE >= 0.5 m")
 
@@ -3181,6 +3308,9 @@ def main() -> None:
     t0 = time.perf_counter()
     rows = kernel_phase(seq, seqs, SystemConfig())
     _phase("kernels", t0)
+    t0 = time.perf_counter()
+    rows += random_phase(SystemConfig())
+    _phase("random", t0)
     # Each row's launches come from the run of the path that uses it (the
     # D = 128 match from the default path, D = 256 from the akaze path).
     row_path = {"response_nms:shi_tomasi": "default", "response_nms:harris": "harris",
@@ -3193,7 +3323,8 @@ def main() -> None:
                 "response_nms:_gradmag2:batch_kaze": "batch_kaze",
                 "response_nms:hessian:batch_kaze": "batch_kaze",
                 "response_nms:fast:batch_akaze": "batch_akaze",
-                "match_top2:d256:batch_akaze": "batch_akaze"}
+                "match_top2:d256:batch_akaze": "batch_akaze", "threefry_gumbel": "default",
+                "threefry_gumbel:batch8": "batch8"}
     launches, profiled = {}, {}
     for name in PATHS:
         t0 = time.perf_counter()

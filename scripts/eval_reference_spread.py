@@ -26,6 +26,17 @@ runs the reference's CPU branch (the response in the pyramid's bfloat16).
 Prints each draw's row as it ends
 and then one JSON object with every draw's row and, per metric, the
 largest distance of a further draw from draw 0 (the spread).
+
+    JAX_PLATFORMS=cpu python scripts/eval_reference_spread.py --config 3
+        --locate-marg --branch tpu --draws 1 [--first d]
+
+locates where the port's row 3b `marg` parts from the reference's at each
+RANSAC seed d (both draw the same hypotheses since the port copies JAX's
+stream): the reference's run, the reference's run with its IMU samples
+moved by one ulp (draw 1's perturbation) and the port's run on the CPU
+(`scripts/torch_eval_configs.py`'s runner), frame by frame: the first
+frame where each pair's positions part by more than 1e-6 m and by more
+than 1e-4 m, the keyframes refined by then, the largest gap, each ATE.
 """
 
 from __future__ import annotations
@@ -183,6 +194,48 @@ def run_config(name: str, seq, seed: int = 0) -> dict:
     return {k: (float(v) if isinstance(v, (float, np.floating)) else v) for k, v in r.items()}
 
 
+def _first_apart(a, b, tol: float):
+    """The first frame (1-based) where poses a and b (N, 3) part by more
+    than tol (max norm), or None."""
+    far = np.nonzero(np.abs(np.asarray(a) - np.asarray(b)).max(-1) > tol)[0]
+    return int(far[0]) + 1 if len(far) else None
+
+
+def locate_marg(seed: int) -> dict:
+    """Config 3b's marg row at RANSAC seed `seed`: the reference, the
+    reference under a 1-ulp IMU change, and the port on the CPU, frame by
+    frame (see the module docstring)."""
+    import eval_configs as ec
+    import torch_eval_configs as tc
+    from vislam_tpu.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu.eval import ate_rmse
+    from vislam_tpu_torch.data import make_synthetic_sequence as port_sequence
+    from vislam_tpu_torch.data import SyntheticConfig as PortConfig
+
+    kw = CONFIGS["3"][0]
+    seq = make_synthetic_sequence(SyntheticConfig(**kw))
+    seeded(seed)
+    marg = _with(backend=dict(online_gauge="marg"))
+    runs = {"reference": ec.run_vio(seq, cfg=marg, gt_scale=False, vi_ba=True)["poses"],
+            "reference, 1 ulp": ec.run_vio(perturbed(seq, 1), cfg=marg, gt_scale=False,
+                                           vi_ba=True)["poses"]}
+    port = tc._vio(port_sequence(PortConfig(**kw)), "cpu", seed,
+                   tc._with(backend=dict(online_gauge="marg")), gt_scale=False, vi_ba=True)
+    runs["port (CPU)"] = port["poses"]
+    gt = seq["gt_pos"][1:len(seq["images"])]
+    out = {"seed": seed, "ate": {k: float(ate_rmse(v, gt, align=False)) for k, v in runs.items()}}
+    ref = runs["reference"]
+    for name in ("reference, 1 ulp", "port (CPU)"):
+        p = runs[name]
+        out[name] = dict(apart_1e6=_first_apart(p, ref, 1e-6), apart_1e4=_first_apart(p, ref, 1e-4),
+                         max_dp=float(np.abs(p - ref).max()))
+        print(f"config 3b marg seed {seed}: {name} against the reference: positions part "
+              f"(> 1e-6 m) first at frame {out[name]['apart_1e6']}, (> 1e-4 m) at frame "
+              f"{out[name]['apart_1e4']}; largest |dp| {out[name]['max_dp']:.3e} m; ATE "
+              f"{out['ate'][name]:.6f} against {out['ate']['reference']:.6f} m", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", required=True, choices=sorted(CONFIGS))
@@ -191,6 +244,8 @@ def main():
     ap.add_argument("--draws", type=int, default=4, help="draws in all, draw 0 included")
     ap.add_argument("--first", type=int, default=0, help="first draw")
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--locate-marg", action="store_true",
+                    help="config 3: locate where the port's marg row parts from the reference's")
     args = ap.parse_args()
     import jax
 
@@ -199,6 +254,10 @@ def main():
 
     if args.branch == "tpu":
         tpu_branch()
+    if args.locate_marg:
+        out = [locate_marg(d) for d in range(args.first, args.first + args.draws)]
+        print(json.dumps(out))
+        return
     kw, metrics = CONFIGS[args.config]
     if args.config == "5":
         seq = [make_synthetic_sequence(SyntheticConfig(**{**kw, "seed": s})) for s in range(8)]

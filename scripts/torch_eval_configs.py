@@ -21,17 +21,17 @@ window refine, batch, checkpoint and map backend. The sequences are the
 pinned ones (`PINNED` there). Imports no JAX and nothing of the JAX
 package: the reference rows are the table `REFERENCE` below.
 
-The port draws its RANSAC hypotheses from a generator of its own on the
-run's device (torch's CUDA and CPU generators give different streams for
-one seed, so the card's and the CPU's runs of one seed differ by the draws
-too; on the same draws they agree to ~1e-6 m of ATE,
-scripts/torch_eval_divergence.py), so one port run and one reference run
-differ by the draws, and the reference's
-own rows move by up to 0.01 m (config 1), 0.30-0.41 m (2c) and 0.10-0.29 m
-(6) from one RANSAC seed to another. So each config runs at the port's
-seeds 0 to n - 1 (`SEEDS`, or --seeds; config 3, six runs a seed, at 6 to
-keep the whole harness near 25 minutes on the card) and each metric's
-values are held against the reference's over its seeds 0-7: the two
+The port draws its RANSAC hypotheses from the reference's stream (JAX's
+threefry keys, `utils/prng.py`; on the card one kernel a frame): its run at
+seed d draws the reference's hypotheses at seed d, on the card and on the
+CPU alike. So each metric gets a paired line: at each seed d, |port_d -
+reference_d| against the reference's TPU-branch row at seed d, the largest
+and its seed (printed, not held). The reference's own rows move by up to
+0.01 m (config 1), 0.30-0.41 m (2c) and 0.10-0.29 m (6) from one RANSAC
+seed to another. Each config runs at seeds 0 to n - 1 (`SEEDS`, or
+--seeds; config 3, six runs a seed, at 6 to keep the whole harness near 25
+minutes on the card) and each metric's values are held against the
+reference's over its seeds 0-7: the two
 medians within the reference's interquartile range, and the port's
 smallest and largest value within the reference's range widened by that
 range on each side; a count (`DISCRETE`: the loops closed) within the
@@ -81,11 +81,10 @@ BATCH_SEEDS = range(8)
 
 # The port's runs per config (RANSAC seeds 0 to n - 1). Config 3 runs six
 # sequences a seed (~107 s on an H100): at 8 seeds the harness took ~30
-# minutes, at 6 ~26. Seed 5 stays in: there the card's online BA parts
-# from its plain run by 5.85e-4 m (ATE), which the neutral hold reports.
-# scripts/torch_eval_divergence.py locates it: the refine's round-off move
-# of the live anchor (<= 2.4e-7 m) flips a near-tied RANSAC inlier count
-# at frame 31 under that seed's card draws.
+# minutes, at 6 ~26. Seed 5 stays in: under the port's earlier stream (a
+# torch generator on the card) its online BA parted from its plain run by
+# 5.85e-4 m (ATE), a near-tied inlier count at frame 31 flipped by the
+# refine's 2.4e-7 m move of the live anchor (scripts/torch_eval_divergence.py).
 SEEDS = {"1": 8, "2": 8, "2c": 8, "3": 6, "4": 8, "5": 8, "6": 1}
 
 # The reference's rows, from scripts/eval_reference_spread.py on the CPU
@@ -493,9 +492,23 @@ def hold(name: str, runs: list) -> list:
                      f"{'inside' if r_lo <= got[0] <= r_hi else 'outside'} the reference's "
                      f"range)")
         out.append((metric, line + f" | reference, CPU branch: {cpu}", ok))
+        out.append(paired(metric, got, ref["tpu"]))
     if name in NEUTRAL:
         out.append(hold_neutral(name, runs))
     return out
+
+
+def paired(metric: str, got: list, ref: tuple) -> tuple:
+    """(metric, line, None): the port's run at seed d against the
+    reference's at seed d (the same RANSAC draws), at each seed both runs
+    have; printed, not held."""
+    d = [abs(g - r) for g, r in zip(got, ref)]
+    worst = int(np.argmax(d))
+    return (f"{metric}/paired",
+            f"  {metric} paired by seed: |port_d - reference_d| "
+            f"{', '.join(f'{x:.2e}' for x in d)} over seeds 0-{len(d) - 1}; largest "
+            f"{d[worst]:.3e} at seed {worst} (port {got[worst]:.6f}, reference "
+            f"{ref[worst]:.6f}); printed, not held", None)
 
 
 def hold_neutral(name: str, runs: list) -> tuple:

@@ -7,23 +7,21 @@ run against its CPU run, and its online-BA run against its plain run.
 Runs EVAL config 3's pinned sequence (`scripts/torch_eval_configs.py`) at
 GT scale, every run stepped in lockstep, for each RANSAC seed:
 
-1. The draws. The harness's runs draw each frame's RANSAC hypotheses from
-   `frame_generator(seed, frame)` on the run's device, and torch's CUDA and
-   CPU generators give different streams for one seed: the line prints the
-   first draws of both.
-2. Card against CPU on the same draws (each frame's drawn on the CPU, a
-   copy on the card), the plain step. Per frame: the keypoints each device
+1. The draws. Every run draws frame n's RANSAC hypotheses under the
+   reference's key fold_in(PRNGKey(seed), n) (`engine.frame_key`), on the
+   card by the draw kernel and on the CPU by its twin: the line says
+   whether frame 1's draws of the two devices are equal bit for bit.
+2. Card against CPU, the plain step. Per frame: the keypoints each device
    detects on the frame's image (`extract_features`; the count, and how
    many keypoints of either set have none of the other within 0.01 px),
    the matches, the RANSAC inliers, the rescue taken, the keyframe flag
    and the positions apart; and the card's step from the CPU run's state
-   on the same inputs, against the CPU's step: what the card's arithmetic
-   alone changes in that frame.
+   on the same inputs and key, against the CPU's step: what the card's
+   arithmetic alone changes in that frame.
 3. Plain against online BA (`refine_window` on each keyframe, the `ends`
-   gauge, which config 3 holds neutral), on the card with the card's own
-   draws (as the harness runs it), on the card with the CPU's draws, and
-   on the CPU. Per frame the same fields, and at each keyframe how far the
-   refine moved the live position and the keyframe anchor.
+   gauge, which config 3 holds neutral), on the card (as the harness runs
+   it) and on the CPU. Per frame the same fields, and at each keyframe how
+   far the refine moved the live position and the keyframe anchor.
 
 For each pair, prints the first frame where the positions part by more
 than 1e-6 m and the first frame where a decision differs (stages in the
@@ -51,14 +49,13 @@ APART_M = 1e-6
 
 
 class Run:
-    """One run of the step over the sequence: its engine, state, draws
-    ("own": the engine's generator on its device; "cpu": drawn on the CPU)
-    and per-frame records."""
+    """One run of the step over the sequence: its engine (keys from `seed`),
+    state and per-frame records."""
 
-    def __init__(self, name, seq, cfg, device, seed, draws, online_ba):
+    def __init__(self, name, seq, cfg, device, seed, online_ba):
         from vislam_tpu_torch.engine import VIOEngine
 
-        self.name, self.seq, self.seed, self.draws = name, seq, seed, draws
+        self.name, self.seq, self.seed = name, seq, seed
         self.online_ba = online_ba
         self.eng = VIOEngine(seq["calib"], cfg, seed, device=device)
         self.state = self.eng.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0],
@@ -71,17 +68,13 @@ class Run:
         gt = float(np.linalg.norm(self.seq["gt_pos"][j] - self.seq["gt_pos"][self.last_kf]))
         return self.seq["images"][j], imu, dt, gt
 
-    def advance(self, j, noises):
+    def advance(self, j):
         from vislam_tpu_torch.engine.refine import refine_window
 
         c = self.seq["calib"]
         before = self.state
-        kw = {}
-        if self.draws == "cpu":
-            kw = dict(noise=noises[0].to(self.eng.device),
-                      noise_rescue=noises[1].to(self.eng.device))
         inputs = self.inputs(j)
-        self.state, res = self.eng.step(before, *inputs, **kw)
+        self.state, res = self.eng.step(before, *inputs)
         rec = record(res)
         if rec["keyframe"]:
             self.last_kf = j
@@ -151,40 +144,39 @@ def parted(ra, rb) -> dict:
 
 def compare(seq, device, seed, n, log) -> dict:
     """The three comparisons at one seed; returns what it printed."""
-    from vislam_tpu_torch.engine.engine import frame_generator
+    import torch
+
+    from vislam_tpu_torch.engine import VIOEngine
+    from vislam_tpu_torch.engine.engine import MAIN_PATHS, RESCUE_PATHS, FrameKey, draw_fields
     from vislam_tpu_torch.engine.state import tree_to
     from vislam_tpu_torch.eval import ate_rmse
-    from vislam_tpu_torch.frontend.pose import gumbel_noise
+    from vislam_tpu_torch.utils import prng
     from torch_eval_configs import _with
 
     cfg = _with()
     H, M = cfg.backend.ransac_hyps, cfg.frontend.max_keypoints
-    own = gumbel_noise(frame_generator(seed, 0, device), H, M, device)[0, 0, :4].cpu()
-    cpu0 = gumbel_noise(frame_generator(seed, 0, "cpu"), H, M, "cpu")[0, 0, :4]
-    log(f"seed {seed}: frame 1's first draws on {device.type}: "
-        f"{[round(float(x), 6) for x in own]}, on the CPU: "
-        f"{[round(float(x), 6) for x in cpu0]}")
+    first = [draw_fields(FrameKey(prng.key_tensor(prng.prng_key(seed), d),
+                                  torch.zeros((), dtype=torch.int32, device=d)),
+                         MAIN_PATHS + RESCUE_PATHS, (H, M)).cpu() for d in (device, "cpu")]
+    log(f"seed {seed}: frame 1's draws on {device.type} and on the CPU equal bit for bit: "
+        f"{torch.equal(*first)}; first values {[round(float(x), 6) for x in first[0][0, 0, :4]]}")
 
     runs = {
-        "card_plain_cpudraws": Run("card plain, CPU draws", seq, cfg, device, seed, "cpu", False),
-        "cpu_plain": Run("CPU plain", seq, cfg, "cpu", seed, "cpu", False),
-        "card_plain": Run("card plain, own draws", seq, cfg, device, seed, "own", False),
-        "card_ba": Run("card online BA, own draws", seq, cfg, device, seed, "own", True),
-        "card_ba_cpudraws": Run("card online BA, CPU draws", seq, cfg, device, seed, "cpu", True),
-        "cpu_ba": Run("CPU online BA", seq, cfg, "cpu", seed, "cpu", True),
+        "card_plain": Run("card plain", seq, cfg, device, seed, False),
+        "cpu_plain": Run("CPU plain", seq, cfg, "cpu", seed, False),
+        "card_ba": Run("card online BA", seq, cfg, device, seed, True),
+        "cpu_ba": Run("CPU online BA", seq, cfg, "cpu", seed, True),
     }
     forced = []
-    card_eng = runs["card_plain_cpudraws"].eng
+    card_eng = VIOEngine(seq["calib"], cfg, seed, device=device)
     t0 = time.perf_counter()
     for j in range(1, n):
-        g = frame_generator(seed, j - 1, "cpu")
-        noises = (gumbel_noise(g, H, M, "cpu"), gumbel_noise(g, H, M, "cpu"))
-        taken = {key: r.advance(j, noises) for key, r in runs.items()}
-        # The card's step from the CPU run's state, on the CPU run's inputs.
+        taken = {key: r.advance(j) for key, r in runs.items()}
+        # The card's step from the CPU run's state, on the CPU run's inputs
+        # and frame key.
         cpu_before, inputs = taken["cpu_plain"]
-        _, res = card_eng.step(tree_to(cpu_before, card_eng.device), *inputs,
-                               noise=noises[0].to(card_eng.device),
-                               noise_rescue=noises[1].to(card_eng.device))
+        card_eng.set_step_counter(j - 1)
+        _, res = card_eng.step(tree_to(cpu_before, card_eng.device), *inputs)
         f = record(res)
         c = runs["cpu_plain"].records[-1]
         f.update(dp_from_cpu_state=float(np.abs(f["p_step"] - c["p_step"]).max()),
@@ -193,7 +185,7 @@ def compare(seq, device, seed, n, log) -> dict:
         n_cpu, uv_cpu = detected(runs["cpu_plain"].eng, seq["images"][j])
         apart, shift = keypoints_apart(uv_card, uv_cpu)
         f.update(detected=(n_card, n_cpu), keypoints_apart=apart, keypoint_shift=shift)
-        runs["card_plain_cpudraws"].records[-1]["detected"] = (n_card, apart)
+        runs["card_plain"].records[-1]["detected"] = (n_card, apart)
         runs["cpu_plain"].records[-1]["detected"] = (n_cpu, 0)
         forced.append(f)
     log(f"seed {seed}: {len(runs)} runs of {n - 1} frames in lockstep, "
@@ -208,11 +200,10 @@ def compare(seq, device, seed, n, log) -> dict:
         if f["keypoints_apart"] or f["stages"] or f["dp_from_cpu_state"] > APART_M:
             log(line)
         out["frames"].append({k: v for k, v in f.items() if k != "p_step"})
-    pairs = {"card vs CPU, the same draws, plain": ("card_plain_cpudraws", "cpu_plain"),
-             "online BA vs plain, card, own draws": ("card_ba", "card_plain"),
-             "online BA vs plain, card, CPU draws": ("card_ba_cpudraws", "card_plain_cpudraws"),
+    pairs = {"card vs CPU, plain": ("card_plain", "cpu_plain"),
+             "online BA vs plain, card": ("card_ba", "card_plain"),
              "online BA vs plain, CPU": ("cpu_ba", "cpu_plain"),
-             "card vs CPU, the same draws, online BA": ("card_ba_cpudraws", "cpu_ba")}
+             "card vs CPU, online BA": ("card_ba", "cpu_ba")}
     for label, (a, b) in pairs.items():
         ra, rb = runs[a].records, runs[b].records
         p = parted(ra, rb)

@@ -1,21 +1,34 @@
 """Time this tree's response + NMS and FED kernels against another tree's on
-one NVIDIA card, each through its own package's public functions.
+one NVIDIA card, each through its own package's public functions; or, with
+--paths, the default and slam paths' frames/s and launches per frame.
 
     python3 scripts/torch_kernels_ab.py --other DIR
+    python3 scripts/torch_kernels_ab.py --other DIR --paths [--frames 60] [--slam-frames 20]
 
 DIR holds another tree of the repository, for example a `git archive` of
 the parent commit unpacked into a gitignored directory. Each tree runs in a
-process of its own, which puts that tree first on `sys.path`, builds the
-tree's kernels into its own `vislam_tpu_torch/_build/` and calls its
-`response_nms(img, detector)` and `fed_evolve(L, k, taus)`: the API the
-trees share, whatever their kernels' C interfaces. The processes run in
-turns: other, this, this, other. Each holds every kernel against its
-tree's plain twin first (chip_smoke.py's tolerances), then times it as the
-replay of a CUDA graph that captured 100 calls (the device's time per
-call) on the images chip_smoke.py uses: each response family on its two
-levels (`_gradmag2` on the frame) and FED's 4- and 8-step cycles at
-480x752. Prints the card, one line per kernel and shape, and a JSON
-summary last. Imports nothing of JAX.
+process of its own, which puts that tree first on `sys.path` and builds the
+tree's kernels into its own `vislam_tpu_torch/_build/`. The processes run
+in turns: other, this, this, other. Only the API the trees share is
+called, whatever their kernels' C interfaces.
+
+Kernels (the default): each tree's `response_nms(img, detector)` and
+`fed_evolve(L, k, taus)` are held against the tree's plain twins first
+(chip_smoke.py's tolerances), then timed as the replay of a CUDA graph that
+captured 100 calls (the device's time per call) on the images
+chip_smoke.py uses: each response family on its two levels (`_gradmag2` on
+the frame) and FED's 4- and 8-step cycles at 480x752.
+
+Paths (--paths): chip_smoke.py's default path (`SystemConfig()`, GT scale)
+and slam path (`vi_factors` and `refine_in_step`, GT-free) run
+`run_sequence_scan` over the seed-0 synthetic sequence at 480x752 from its
+true initial state, at seed 0: frames/s as the median of 3 timed runs after
+a warm-up, then the device launches (kernels, copies, memsets) per frame
+from torch.profiler over 2 frames (1 on the slam path), and among them the
+draw kernel's (`threefry_gumbel_kernel`, where the tree has it).
+
+Prints the card, one line per kernel and shape (per path and turn), and a
+JSON summary last. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEV = "cuda"
@@ -111,32 +125,65 @@ def time_tree(tree: str) -> dict:
     return out
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", help="root of the other tree")
-    ap.add_argument("--tree", help="time only this tree, in this process (used by the turns)")
-    args = ap.parse_args()
-    import torch
+def run_paths(tree: str, frames: int, slam_frames: int) -> dict:
+    """Each path's frames/s and launches per frame in this process, with
+    `tree`'s package."""
+    sys.path.insert(0, tree)
+    import dataclasses
 
-    if not torch.cuda.is_available():
-        _fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
-    if args.tree:
-        print(json.dumps(time_tree(args.tree)), flush=True)
-        return
-    if not args.other or not os.path.isdir(os.path.join(args.other, "vislam_tpu_torch")):
-        _fail(f"--other must name a tree of the repository, got {args.other!r}")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    trees = {"other": os.path.abspath(args.other), "this": ROOT}
-    runs = []
-    for name in ("other", "this", "this", "other"):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", trees[name]],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            _fail(f"timing the {name} tree failed:\n{proc.stderr[-4000:]}")
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import vislam_tpu_torch
+    if not os.path.abspath(vislam_tpu_torch.__file__).startswith(os.path.abspath(tree) + os.sep):
+        _fail(f"imported {vislam_tpu_torch.__file__}, not the package of {tree}")
+    from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu_torch.engine import VIOEngine, make_sequence_inputs, run_sequence_scan
+    from vislam_tpu_torch.utils.config import SystemConfig
+
+    seq = make_synthetic_sequence(SyntheticConfig(n_frames=frames + 1, n_landmarks=300, seed=0))
+    base = SystemConfig()
+    slam = dataclasses.replace(base, backend=dataclasses.replace(
+        base.backend, vi_factors=True, refine_in_step=True))
+    out = {}
+    for name, cfg, n, gt_scale, traced in (("default", base, frames, True, 2),
+                                           ("slam", slam, slam_frames, False, 1)):
+        eng = VIOEngine(seq["calib"], cfg, device=DEV)
+
+        def init():
+            return eng.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0],
+                                  v_w0=seq["gt_vel"][0], p_w0=seq["gt_pos"][0])
+
+        inputs = make_sequence_inputs(seq, 1, 1 + n, use_gt_scale=gt_scale, device=DEV)
+
+        def first(k):
+            return inputs._replace(images=inputs.images[:k], imu=inputs.imu[:k],
+                                   imu_dt=inputs.imu_dt[:k], gt_pos=inputs.gt_pos[:k])
+
+        run_sequence_scan(eng, init(), first(3))          # first use
+        fps = []
+        for _ in range(3):
+            state0 = init()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_sequence_scan(eng, state0, inputs)
+            torch.cuda.synchronize()
+            fps.append(n / (time.perf_counter() - t0))
+        state0 = init()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_sequence_scan(eng, state0, first(traced))
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        draws = sum(1 for e in events if "threefry_gumbel_kernel" in e.name)
+        out[name] = dict(frames=n, fps=sorted(fps)[1], fps_runs=fps,
+                         launches_per_frame=len(events) / traced,
+                         draw_kernel_per_frame=draws / traced)
+    return out
+
+
+def summarize_kernels(card: str, trees: dict, runs: list) -> dict:
+    """Each kernel call's graph time per tree, the mean of its two turns."""
     summary = {"card": card, "other": trees["other"], "us": {}}
     for label in runs[0]:
         turns = [r[label] for r in runs]
@@ -151,8 +198,70 @@ def main() -> None:
         summary["us"][f"response_nms {fam} per frame"] = dict(other=o, this=t, ratio=t / o)
         print(f"ab response_nms {fam} per frame (two levels): other {o:.2f} us, this {t:.2f} us "
               f"({t / o:.3f}x)", flush=True)
-    print(json.dumps(summary), flush=True)
+    return summary
 
+
+def summarize_paths(card: str, trees: dict, runs: list) -> dict:
+    """Each path's frames/s and launches per frame per tree, the mean of its
+    two turns."""
+    summary = {"card": card, "other": trees["other"], "paths": {}}
+    for path in runs[0]:
+        turns = [r[path] for r in runs]
+        side = {"other": (turns[0], turns[3]), "this": (turns[1], turns[2])}
+        summary["paths"][path] = {
+            who: dict(fps=sum(t["fps"] for t in ts) / 2,
+                      launches_per_frame=sum(t["launches_per_frame"] for t in ts) / 2)
+            for who, ts in side.items()}
+        s = summary["paths"][path]
+        print(f"ab {path}: frames/s other {s['other']['fps']:.2f}, this {s['this']['fps']:.2f} "
+              f"({s['this']['fps'] / s['other']['fps']:.3f}x); launches per frame other "
+              f"{s['other']['launches_per_frame']:.1f}, this "
+              f"{s['this']['launches_per_frame']:.1f}", flush=True)
+    return summary
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", help="root of the other tree")
+    ap.add_argument("--tree", help="run only this tree, in this process (used by the turns)")
+    ap.add_argument("--paths", action="store_true",
+                    help="compare the default and slam paths, not the kernels")
+    ap.add_argument("--frames", type=int, default=60, help="--paths: frames of the default path")
+    ap.add_argument("--slam-frames", type=int, default=20, help="--paths: frames of the slam path")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    if args.tree:
+        out = (run_paths(args.tree, args.frames, args.slam_frames) if args.paths
+               else time_tree(args.tree))
+        print(json.dumps(out), flush=True)
+        return
+    if not args.other or not os.path.isdir(os.path.join(args.other, "vislam_tpu_torch")):
+        _fail(f"--other must name a tree of the repository, got {args.other!r}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    trees = {"other": os.path.abspath(args.other), "this": ROOT}
+    mode = (["--paths", "--frames", str(args.frames), "--slam-frames", str(args.slam_frames)]
+            if args.paths else [])
+    runs = []
+    for name in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", trees[name],
+                               *mode], capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            _fail(f"the {name} tree failed:\n{proc.stderr[-4000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        if args.paths:
+            for path, r in runs[-1].items():
+                print(f"ab {name} {path}: {r['frames']} frames, {r['fps']:.2f} frames/s (median "
+                      f"of {[round(f, 2) for f in r['fps_runs']]}), "
+                      f"{r['launches_per_frame']:.1f} launches per frame, "
+                      f"{r['draw_kernel_per_frame']:.1f} of the draw kernel", flush=True)
+    summarize = summarize_paths if args.paths else summarize_kernels
+    print(json.dumps(summarize(card, trees, runs)), flush=True)
 
 if __name__ == "__main__":
     main()

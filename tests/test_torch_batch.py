@@ -33,12 +33,12 @@ from vislam_tpu_torch.engine import (
     make_sequence_inputs,
     run_batch_scan,
     run_sequence_scan,
-    sequence_seed,
+    sequence_key,
     stack_states,
     unstack_states,
 )
 from vislam_tpu_torch.eval import ate_rmse
-from vislam_tpu_torch.ops import fed_kernel, harris_kernel, match_kernel
+from vislam_tpu_torch.ops import fed_kernel, harris_kernel, match_kernel, threefry_kernel
 from vislam_tpu_torch.utils import config as tconfig
 from vislam_tpu_torch.utils.convert import batch_from_numpy, inputs_from_numpy, inputs_to_numpy
 
@@ -79,32 +79,35 @@ def seqs_ref():
     return _seqs(N_REF + 1)
 
 
-@pytest.mark.parametrize("gt_scale", [True, False], ids=["gt_scale", "imu_scale"])
-def test_batch_matches_reference_run_batch_scan(seqs_ref, gt_scale):
-    """B = 2 (sequences 3 and 9), 12 frames, GT scale and GT-free: the port's
-    batch, started from the reference's converted batch state and fed the
-    reference's draws, takes the same keyframes on every frame of every
-    entry, match counts within 2 (a near-tie may flip one match), positions
-    within 2e-3 m (tests/test_torch_engine.py's float32 bound), and ends
-    with the same latches and keyframe counts."""
-    jeng = JEngine(seqs_ref[0]["calib"], _configure(JSystem()))
-    jstates = [_init(jeng, s) for s in seqs_ref]
-    jins = [j_inputs(s, use_gt_scale=gt_scale) for s in seqs_ref]
-    jfinal, jres = j_run_batch_scan(
-        jeng, jax.tree.map(lambda *xs: jnp.stack(xs), *jstates),
-        jax.tree.map(lambda *xs: jnp.stack(xs) if xs[0].ndim > 0 else xs[0], *jins),
-        jnp.asarray(_kf0(seqs_ref)))
+@pytest.fixture(scope="module")
+def reference_batch(seqs_ref):
+    """The reference's run_batch_scan (seed 0) of sequences 3 and 9 on the
+    float32 pipeline, by gt_scale, each made once: (final state, results,
+    the port's converted initial states and inputs)."""
+    made = {}
 
-    teng = TEngine(seqs_ref[0]["calib"], _configure(tconfig.SystemConfig()), device="cpu")
-    states0, inputs = batch_from_numpy([jax.tree.map(np.asarray, s) for s in jstates],
-                                       [jax.tree.map(np.asarray, i) for i in jins], "cpu")
-    assert inputs.images.shape[:2] == (2, N_REF) and inputs.use_gt_scale is gt_scale
-    keys = jax.random.split(jax.random.PRNGKey(0), len(SEEDS))
-    noises = [[(_jax_noise(k, 768), _jax_noise(jax.random.fold_in(k, 7), 768))
-               for k in (jax.random.fold_in(keys[b], n) for n in range(N_REF))]
-              for b in range(len(SEEDS))]
-    tfinal, tres = run_batch_scan(teng, states0, inputs, _kf0(seqs_ref), noises=noises)
+    def get(gt_scale):
+        if gt_scale not in made:
+            jeng = JEngine(seqs_ref[0]["calib"], _configure(JSystem()))
+            jstates = [_init(jeng, s) for s in seqs_ref]
+            jins = [j_inputs(s, use_gt_scale=gt_scale) for s in seqs_ref]
+            jfinal, jres = j_run_batch_scan(
+                jeng, jax.tree.map(lambda *xs: jnp.stack(xs), *jstates),
+                jax.tree.map(lambda *xs: jnp.stack(xs) if xs[0].ndim > 0 else xs[0], *jins),
+                jnp.asarray(_kf0(seqs_ref)))
+            made[gt_scale] = (jfinal, jres) + batch_from_numpy(
+                [jax.tree.map(np.asarray, s) for s in jstates],
+                [jax.tree.map(np.asarray, i) for i in jins], "cpu")
+        return made[gt_scale]
 
+    return get
+
+
+def _held_as_reference(tfinal, tres, jfinal, jres):
+    """The same keyframes on every frame of every entry, match counts within
+    2 (a near-tie may flip one match), positions within 2e-3 m
+    (tests/test_torch_engine.py's float32 bound), the same latches and
+    keyframe counts at the end."""
     assert tres.p_wc.shape == (2, N_REF, 3)
     np.testing.assert_array_equal(tres.is_keyframe.numpy(), np.asarray(jres.is_keyframe))
     assert tres.is_keyframe.sum() > 8
@@ -113,6 +116,46 @@ def test_batch_matches_reference_run_batch_scan(seqs_ref, gt_scale):
     for name in ("vi_aligned", "vi_engaged", "bootstrap_applies", "kf_count", "frame_idx"):
         np.testing.assert_array_equal(getattr(tfinal, name).numpy(),
                                       np.asarray(getattr(jfinal, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("gt_scale", [True, False], ids=["gt_scale", "imu_scale"])
+def test_batch_matches_reference_run_batch_scan(seqs_ref, reference_batch, gt_scale):
+    """B = 2 (sequences 3 and 9), 12 frames, GT scale and GT-free: the port's
+    batch, started from the reference's converted batch state and fed the
+    reference's draws, is held as `_held_as_reference` says."""
+    jfinal, jres, states0, inputs = reference_batch(gt_scale)
+    teng = TEngine(seqs_ref[0]["calib"], _configure(tconfig.SystemConfig()), device="cpu")
+    assert inputs.images.shape[:2] == (2, N_REF) and inputs.use_gt_scale is gt_scale
+    keys = jax.random.split(jax.random.PRNGKey(0), len(SEEDS))
+    noises = [[(_jax_noise(k, 768), _jax_noise(jax.random.fold_in(k, 7), 768))
+               for k in (jax.random.fold_in(keys[b], n) for n in range(N_REF))]
+              for b in range(len(SEEDS))]
+    tfinal, tres = run_batch_scan(teng, states0, inputs, _kf0(seqs_ref), noises=noises)
+    _held_as_reference(tfinal, tres, jfinal, jres)
+
+
+def test_batch_at_seed_equals_reference_without_fed_draws(seqs_ref, reference_batch):
+    """No draws fed in: the port's run_batch_scan at seed 0 keys entry b
+    with split(PRNGKey(0), 2)[b] and frame n with its fold_in n, the
+    reference's keys, and is held against the reference's batch at seed 0
+    (GT scale) as the fed test above. Then a rank's slice: entry 1 run
+    alone with offset 1 (what `parallel/batch_runner.py` passes a rank
+    under process_local) equals entry 1 of the whole batch over its first
+    6 frames (keyframes and match counts equal, positions within 1e-5 m:
+    batched reductions of 1 against 2 entries)."""
+    jfinal, jres, states0, inputs = reference_batch(True)
+    teng = TEngine(seqs_ref[0]["calib"], _configure(tconfig.SystemConfig()), device="cpu")
+    tfinal, tres = run_batch_scan(teng, states0, inputs, _kf0(seqs_ref), seed=0)
+    _held_as_reference(tfinal, tres, jfinal, jres)
+
+    n = 6
+    part = inputs._replace(**{f: getattr(inputs, f)[1:, :n]
+                              for f in ("images", "imu", "imu_dt", "gt_pos")})
+    state1 = stack_states(unstack_states(states0)[1:])
+    _, one = run_batch_scan(teng, state1, part, _kf0(seqs_ref)[1:], seed=0, offset=1)
+    assert torch.equal(one.is_keyframe[0], tres.is_keyframe[1, :n])
+    assert torch.equal(one.num_matches[0], tres.num_matches[1, :n])
+    torch.testing.assert_close(one.p_wc[0], tres.p_wc[1, :n], rtol=0, atol=1e-5)
 
 
 def test_batch_kaze_tracks_like_reference_run_batch_scan():
@@ -164,9 +207,9 @@ def test_batch_kaze_tracks_like_reference_run_batch_scan():
 def _count_plain_calls(monkeypatch):
     """Count the kernels' plain versions as the custom ops call them on the
     CPU (one call per op call: a folded batch counts once)."""
-    counts = {"response_nms": 0, "match_top2": 0, "fed_evolve": 0}
+    counts = {"response_nms": 0, "match_top2": 0, "fed_evolve": 0, "threefry_gumbel": 0}
     for mod, name in ((harris_kernel, "response_nms"), (match_kernel, "match_top2"),
-                      (fed_kernel, "fed_evolve")):
+                      (fed_kernel, "fed_evolve"), (threefry_kernel, "threefry_gumbel")):
         plain = getattr(mod, name + "_plain")
 
         def counted(*a, _plain=plain, _name=name, **k):
@@ -179,13 +222,14 @@ def _count_plain_calls(monkeypatch):
 
 MODES = {
     # frontend and backend overrides, GT scale, frames, op calls per batched step
-    "default": (dict(), dict(), True, 8, {"response_nms": 2, "match_top2": 2, "fed_evolve": 0}),
+    "default": (dict(), dict(), True, 8, {"response_nms": 2, "match_top2": 2, "fed_evolve": 0,
+                                          "threefry_gumbel": 1}),
     "kaze": (dict(scale_space="nonlinear", detector="hessian"), dict(), True, 4,
-             {"response_nms": 3, "match_top2": 2, "fed_evolve": 2}),
+             {"response_nms": 3, "match_top2": 2, "fed_evolve": 2, "threefry_gumbel": 1}),
     "akaze": (dict(scale_space="nonlinear", detector="fast", descriptor="brief"), dict(), True,
-              4, {"response_nms": 3, "match_top2": 2, "fed_evolve": 2}),
+              4, {"response_nms": 3, "match_top2": 2, "fed_evolve": 2, "threefry_gumbel": 1}),
     "slam": (dict(), dict(vi_factors=True, refine_in_step=True), False, 4,
-             {"response_nms": 2, "match_top2": 3, "fed_evolve": 0}),
+             {"response_nms": 2, "match_top2": 3, "fed_evolve": 0, "threefry_gumbel": 1}),
 }
 
 
@@ -198,7 +242,7 @@ NO_KEYFRAMES = {"akaze"}
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_batch_entries_equal_unbatched_runs(monkeypatch, mode):
     """Each entry b of run_batch_scan equals the port's own
-    run_sequence_scan with seed sequence_seed(seed, b) on the same inputs:
+    run_sequence_scan with key sequence_key(seed, b) on the same inputs:
     the same keyframes and match counts, positions within 1e-5 m (float32
     round-off of batched against single reductions), on the default config
     (GT scale), the KAZE analog (FED and the hessian response folded) and
@@ -207,7 +251,8 @@ def test_batch_entries_equal_unbatched_runs(monkeypatch, mode):
     match at a_group 1). Each batched step calls each kernel's op once for
     the whole batch: one response call per level (KAZE, AKAZE: and the
     contrast statistic), one FED call per cycle, 2 matches (main and gated
-    rescue), and in SLAM mode the window match as a third."""
+    rescue), and in SLAM mode the window match as a third; and one draw
+    (every entry's main and rescue Gumbel fields)."""
     frontend, backend, gt_scale, n, per_step = MODES[mode]
     seqs = _seqs(n + 1)
     base = _configure(tconfig.SystemConfig(), f32=False, **backend)
@@ -225,7 +270,7 @@ def test_batch_entries_equal_unbatched_runs(monkeypatch, mode):
     else:
         assert res.is_keyframe.any(dim=1).all()
     for b, (seq, inp) in enumerate(zip(seqs, inputs)):
-        one_final, one = run_sequence_scan(eng, _init(eng, seq), inp, seed=sequence_seed(7, b))
+        one_final, one = run_sequence_scan(eng, _init(eng, seq), inp, key=sequence_key(7, b))
         assert torch.equal(res.is_keyframe[b], one.is_keyframe)
         assert torch.equal(res.num_matches[b], one.num_matches)
         torch.testing.assert_close(res.p_wc[b], one.p_wc, rtol=0, atol=1e-5)
@@ -252,12 +297,12 @@ def test_batch_default_pipeline_ate():
 
 
 def test_batch_helpers():
-    """sequence_seed is a function of (seed, b) that separates sequences;
+    """sequence_key is a function of (seed, b) that separates sequences;
     make_batch_inputs refuses a batch that mixes GT and IMU scale; states
     stack and unstack to the same leaves; the batched inputs convert to
     numpy (a leading B) and back."""
-    assert sequence_seed(0, 1) == sequence_seed(0, 1)
-    assert len({sequence_seed(s, b) for s in range(3) for b in range(4)}) == 12
+    assert np.array_equal(sequence_key(0, 1), sequence_key(0, 1))
+    assert len({tuple(sequence_key(s, b)) for s in range(3) for b in range(4)}) == 12
     seq = _seqs(3)[0]
     a = make_sequence_inputs(seq, 1, 3, device="cpu")
     with pytest.raises(ValueError, match="use_gt_scale"):

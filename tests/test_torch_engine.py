@@ -200,9 +200,29 @@ def test_state_conversion_roundtrip_and_step_from_reference_state(f32_runs, seq)
     np.testing.assert_allclose(res.p_wc.numpy(), ref["p"], atol=2e-3)
 
 
+def test_scan_at_seed_equals_reference_without_fed_draws(f32_runs, seq):
+    """No draws fed in: the port's run_sequence_scan at seed 0 draws under
+    its own keys (fold_in(PRNGKey(0), n), the reference's) and, over the
+    float32 pipeline's first 12 frames, is held against the reference's
+    step loop at seed 0 as the fed test above holds it: the same keyframe
+    and rescue decisions on every frame, match and inlier counts within 2,
+    positions within 2 mm."""
+    (jr, _, _), _ = f32_runs
+    n = 12
+    eng = TEngine(seq["calib"], _f32(tconfig.SystemConfig()), seed=0, device="cpu")
+    _, res = run_sequence_scan(eng, _init(eng, seq),
+                               make_sequence_inputs(seq, 1, n + 1, device="cpu"), seed=0)
+    assert [bool(k) for k in res.is_keyframe] == [r["kf"] for r in jr[:n]]
+    assert [bool(f) for f in res.used_fallback] == [r["fb"] for r in jr[:n]]
+    for k, x in enumerate(jr[:n]):
+        assert abs(int(res.num_matches[k]) - x["nm"]) <= 2, (k, x)
+        assert abs(int(res.num_inliers[k]) - x["ni"]) <= 2, (k, x)
+        np.testing.assert_allclose(res.p_wc[k].numpy(), x["p"], atol=2e-3)
+
+
 def test_run_sequence_scan_equals_step_loop(seq):
     """The sequence loop and a loop of step draw the same hypotheses (frame
-    generator from (seed, frame index)) and produce the same results."""
+    key fold_in(PRNGKey(seed), frame index)) and produce the same results."""
     n = 8
     eng = TEngine(seq["calib"], device="cpu")
     inputs = make_sequence_inputs(seq, 1, n + 1, device="cpu")

@@ -265,20 +265,12 @@ def test_ransac_essential_on_sequence_pairs(exact_reference, sequence_pairs):
             np.testing.assert_array_equal(b.inlier_mask.numpy(), np.asarray(a.inlier_mask))
 
 
-def test_vision_rotation_step_equals_reference(exact_reference, monkeypatch):
-    """13 frames of the KITTI mode (vision-only rotation, single scale, no
-    IMU, GT scale), float32 image pipeline, the reference's draws; each port
-    step starts from the reference's state before that frame (converted),
-    so a frame's difference does not carry into the next. On every frame:
-    keyframes equal and inlier counts within 3. Where the two solves agree
-    (t_dir within 1e-3), positions within 1e-3 m and attitudes within 1e-4
-    (quaternion dot). Where they do not, the reference disagrees with
-    itself: its RANSAC called eagerly on the port's rays (the jitted step's
-    own rays agree with them to float32 round-off) and hypotheses
-    (`exact_reference.feed`) gives the port's solve, not the jitted step's
-    (another support-equal solution, or a round-off-fixed hypothesis, picked
-    by round-off); at most 4 of the 13 frames (3 when written: frames 2, 4
-    and 8)."""
+def _vision_steps(exact_reference, monkeypatch, n, fed):
+    """The KITTI mode's first n frames, each port step from the reference's
+    state before it, checked frame by frame (below); the port's draws are
+    the reference's, fed in (fed) or drawn under the port's own key (the
+    engine's counter: fold_in(PRNGKey(0), j - 1), the reference's key).
+    Returns (keyframes, frames where the two solves differ)."""
     import vislam_tpu_torch.engine.engine as tengine
     from vislam_tpu_torch.utils.convert import state_from_numpy
 
@@ -303,11 +295,11 @@ def test_vision_rotation_step_equals_reference(exact_reference, monkeypatch):
                        p_w0=seq["gt_pos"][0])
     imu, dt = np.zeros((16, 6), np.float32), np.zeros(16, np.float32)
     last, ambiguous, keyframes = 0, [], 0
-    for j in range(1, 14):
+    for j in range(1, n + 1):
         g = float(np.linalg.norm(seq["gt_pos"][j] - seq["gt_pos"][last]))
         key = jax.random.fold_in(jax.random.PRNGKey(0), j - 1)
         ts = state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
-        noise = _t(jax.random.gumbel(key, (512, 8, ts.kf_feat.uv.shape[0])))
+        noise = _t(jax.random.gumbel(key, (512, 8, ts.kf_feat.uv.shape[0]))) if fed else None
         _, tr = te.step(ts, seq["images"][j], imu, dt, g, noise)
         js, jr = je.step(js, seq["images"][j], imu, dt, g)
         assert bool(tr.is_keyframe) == bool(jr.is_keyframe), j
@@ -328,4 +320,32 @@ def test_vision_rotation_step_equals_reference(exact_reference, monkeypatch):
             assert np.abs(np.asarray(eager.t_dir) - np.asarray(jr.t_dir_cam)).max() > 1e-3, j
         last = j if bool(jr.is_keyframe) else last
         keyframes += bool(jr.is_keyframe)
+    return keyframes, ambiguous
+
+
+def test_vision_rotation_step_equals_reference(exact_reference, monkeypatch):
+    """13 frames of the KITTI mode (vision-only rotation, single scale, no
+    IMU, GT scale), float32 image pipeline, the reference's draws; each port
+    step starts from the reference's state before that frame (converted),
+    so a frame's difference does not carry into the next. On every frame:
+    keyframes equal and inlier counts within 3. Where the two solves agree
+    (t_dir within 1e-3), positions within 1e-3 m and attitudes within 1e-4
+    (quaternion dot). Where they do not, the reference disagrees with
+    itself: its RANSAC called eagerly on the port's rays (the jitted step's
+    own rays agree with them to float32 round-off) and hypotheses
+    (`exact_reference.feed`) gives the port's solve, not the jitted step's
+    (another support-equal solution, or a round-off-fixed hypothesis, picked
+    by round-off); at most 4 of the 13 frames (3 when written: frames 2, 4
+    and 8)."""
+    keyframes, ambiguous = _vision_steps(exact_reference, monkeypatch, 13, fed=True)
     assert keyframes >= 3 and len(ambiguous) <= 4, (keyframes, ambiguous)
+
+
+def test_vision_rotation_keyed_step_equals_reference(exact_reference, monkeypatch):
+    """No draws fed in: the KITTI mode's first 6 frames, each port step drawing
+    under its own key (the reference's), held as the test above holds its
+    13 (keyframes equal, inliers within 3, positions and attitudes where
+    the solves agree, the reference disagreeing with itself where they do
+    not), at most 2 frames of the 6 where they do not (3 of the 13 there)."""
+    keyframes, ambiguous = _vision_steps(exact_reference, monkeypatch, 6, fed=False)
+    assert keyframes >= 2 and len(ambiguous) <= 2, (keyframes, ambiguous)

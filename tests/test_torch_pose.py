@@ -15,6 +15,7 @@ from vislam_tpu.frontend import pose as jpose
 from vislam_tpu_torch.backend.triangulate import triangulate_midpoint as t_tri
 from vislam_tpu_torch.engine.engine import nanmedian
 from vislam_tpu_torch.frontend import pose as tpose
+from vislam_tpu_torch.utils import prng
 
 torch.set_num_threads(2)
 H = 512
@@ -72,10 +73,15 @@ def test_gumbel_noise_reproduces_jax_categorical():
 
 
 def test_port_gumbel_draws_are_seeded_and_standard():
-    g = torch.Generator().manual_seed(5)
-    a = tpose.gumbel_noise(g, H, 768, "cpu")
-    b = tpose.gumbel_noise(torch.Generator().manual_seed(5), H, 768, "cpu")
+    """The port's draws under a key are a function of the key alone, are
+    the reference's (ka, kb = split(key)) to JAX's last-ulp log
+    differences, and are standard Gumbel."""
+    key = prng.key_tensor(prng.fold_in(prng.prng_key(5), 3), "cpu")
+    a = tpose.gumbel_noise(key, H, 768)
+    b = tpose.gumbel_noise(key.clone(), H, 768)
     assert a.shape == (2, H, 768) and torch.equal(a, b)
+    ref = _jax_noise(jax.random.fold_in(jax.random.PRNGKey(5), 3), 768)
+    np.testing.assert_allclose(a.numpy(), ref, rtol=0, atol=1e-6)
     # Standard Gumbel: mean = Euler-Mascheroni constant, variance pi^2/6.
     assert abs(a.mean().item() - 0.5772) < 0.01
     assert abs(a.var().item() - np.pi ** 2 / 6) < 0.02

@@ -81,7 +81,7 @@ from vislam_tpu_torch.engine import (
     make_sequence_inputs,
     run_batch_scan,
     run_sequence_scan,
-    sequence_seed,
+    sequence_key,
     stack_states,
 )
 from vislam_tpu_torch.engine.refine import build_window_problem, window_ba
@@ -140,10 +140,10 @@ def _ulp_perturbed(inp, draw: int):
     return inp._replace(imu=torch.where(real, torch.nextafter(inp.imu, away), inp.imu))
 
 
-def _ulp_spread(eng, seq, inp, seed, p_wc):
+def _ulp_spread(eng, seq, inp, key, p_wc):
     """Per frame, the largest distance (max norm) of the unbatched run's
     position from p_wc under ULP_DRAWS 1-ulp IMU changes."""
-    moves = [(run_sequence_scan(eng, _init(eng, seq), _ulp_perturbed(inp, d), seed=seed)[1]
+    moves = [(run_sequence_scan(eng, _init(eng, seq), _ulp_perturbed(inp, d), key=key)[1]
               .p_wc - p_wc).abs().amax(-1) for d in range(1, ULP_DRAWS + 1)]
     return torch.stack(moves).amax(0)
 
@@ -151,9 +151,9 @@ def _ulp_spread(eng, seq, inp, seed, p_wc):
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_batch_entries_equal_unbatched_runs(monkeypatch, mode):
     """Entry b of run_batch_scan against run_sequence_scan with seed
-    sequence_seed(seed, b), GT scale; each batched step calls each
+    key sequence_key(seed, b), GT scale; each batched step calls each
     kernel's op once for the whole batch (vision-only: one level, one
-    match and no rescue; gated: the gated match only)."""
+    match and no rescue; gated: the gated match only), the draws too."""
     over, n, atol, per_step = MODES[mode]
     seqs = _seqs(n + 1)
     eng = TEngine(seqs[0]["calib"], _cfg(tconfig.SystemConfig(), **over), device="cpu")
@@ -161,16 +161,17 @@ def test_batch_entries_equal_unbatched_runs(monkeypatch, mode):
     states0 = stack_states([_init(eng, s) for s in seqs])
     counts = _count_plain_calls(monkeypatch)
     _, res = run_batch_scan(eng, states0, make_batch_inputs(inputs), _kf0(seqs), seed=7)
-    assert counts == {**{k: v * n for k, v in per_step.items()}, "fed_evolve": 0}, counts
+    assert counts == {**{k: v * n for k, v in per_step.items()}, "fed_evolve": 0,
+                      "threefry_gumbel": n}, counts
     monkeypatch.undo()
     torch._C._functorch._set_vmap_fallback_enabled(False)
     assert torch.isfinite(res.p_wc).all()
     for b, (seq, inp) in enumerate(zip(seqs, inputs)):
-        _, one = run_sequence_scan(eng, _init(eng, seq), inp, seed=sequence_seed(7, b))
+        _, one = run_sequence_scan(eng, _init(eng, seq), inp, key=sequence_key(7, b))
         assert torch.equal(res.is_keyframe[b], one.is_keyframe)
         assert torch.equal(res.num_matches[b], one.num_matches)
         if atol is None:
-            spread = _ulp_spread(eng, seq, inp, sequence_seed(7, b), one.p_wc)
+            spread = _ulp_spread(eng, seq, inp, sequence_key(7, b), one.p_wc)
             bound = torch.clamp(SPREAD_MULTIPLE * spread, min=SPREAD_FLOOR, max=SPREAD_CAP)
             gap = (res.p_wc[b] - one.p_wc).abs().amax(-1)
             assert (gap <= bound).all(), (b, gap.tolist(), spread.tolist())
@@ -206,7 +207,7 @@ def test_batched_window_refine_equals_unbatched(monkeypatch, mode):
     monkeypatch.setattr(tengine, "refine_window", record)
     for b, seq in enumerate(seqs):
         run_sequence_scan(eng, _init(eng, seq), make_sequence_inputs(seq, 1, n + 1, device="cpu"),
-                          seed=sequence_seed(7, b))
+                          key=sequence_key(7, b))
     monkeypatch.undo()
     torch._C._functorch._set_vmap_fallback_enabled(False)
     states = [seen[n - 1][0], seen[2 * n - 1][0]]          # each entry's frame 3

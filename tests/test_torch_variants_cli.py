@@ -4,8 +4,8 @@ mode, the window VI-BA in the step, as users pass --gauge), each on
 --synthetic 14 against the JAX CLI with the same flags on the same
 sequence.
 
-The two CLIs draw their RANSAC hypotheses differently (JAX keys against
-torch generators), so their rows are held as tests/test_torch_cli.py holds
+The two CLIs draw the same RANSAC stream, but their default bf16
+pipelines round differently, so their rows are held as tests/test_torch_cli.py holds
 the default run: the port's ATE under 0.5 m and within 0.05 m of the
 reference's (measured when written, port / reference: --oriented 0.0077 /
 0.0077 m, --photometric 0.0474 / 0.0428, --gauge marg and oldest2 0.0424 /

@@ -59,13 +59,14 @@ def rays(uv, fx, fy, cx, cy):
 
 
 def verify_loop(desc_a, mask_a, uv_a, desc_b, mask_b, uv_b, fx, fy, cx, cy,
-                generator: Optional[torch.Generator] = None, min_inliers: int = 24,
+                key: Optional[torch.Tensor] = None, min_inliers: int = 24,
                 ratio: float = 0.8, ransac_thresh: float = 0.02, noise=None):
     """Geometric verification of one candidate pair: the matches' epipolar
     RANSAC with identity rotation (a loop revisits a place with a similar
     heading; another heading passes only if the inliers still clear the
     bar). The 256 hypotheses come from `noise` ((2, 256, K) Gumbel) or are
-    drawn from `generator`.
+    drawn under `key` ((2,) int32 on the descriptors' device), as the
+    reference's verify_loop draws them.
 
     Returns (accepted (), R_ji (identity), t_dir (3,), num_inliers ()).
     """
@@ -73,6 +74,6 @@ def verify_loop(desc_a, mask_a, uv_a, desc_b, mask_b, uv_b, fx, fy, cx, cy,
     ra = rays(uv_a, fx, fy, cx, cy)
     rb = rays(take_rows(uv_b, m.idx_b), fx, fy, cx, cy)
     eye = torch.eye(3, dtype=ra.dtype, device=ra.device)
-    est = ransac_translation(ra, rb, eye, m.mask, generator, num_hyps=256, thresh=ransac_thresh,
+    est = ransac_translation(ra, rb, eye, m.mask, key, num_hyps=256, thresh=ransac_thresh,
                              noise=noise)
     return est.num_inliers >= min_inliers, eye, est.t_dir, est.num_inliers

@@ -9,17 +9,20 @@ from vislam_tpu_torch.engine.state import (
     unstack_states,
 )
 from vislam_tpu_torch.engine.engine import (
+    FrameKey,
     FrameResult,
     HostFrameResult,
     VIOEngine,
+    frame_key,
     unpack_host_result,
 )
 from vislam_tpu_torch.engine.batch import (
     SequenceInputs,
+    batch_keys,
     make_batch_inputs,
     make_sequence_inputs,
     run_batch_scan,
     run_sequence_scan,
-    sequence_seed,
+    sequence_key,
     stage_dataset,
 )

@@ -11,8 +11,15 @@ every frame on the IMU scale (the reference's gt_norm = -1).
 
 `run_batch_scan` is the multi-sequence throughput mode: each frame is one
 `torch.func.vmap` call of the step over the B sequences, so every launch
-of the step serves the whole batch; the three kernels' custom ops fold the
-mapped dimension into their own batch (`ops/*_kernel.py`).
+of the step serves the whole batch; the kernels' custom ops fold the
+mapped dimension into their own batch (`ops/*_kernel.py`), the draws'
+too: one launch draws every sequence's hypotheses.
+
+Keys are the reference's: a sequence run with `seed` keys frame n with
+fold_in(PRNGKey(seed), n) (its scan's fold_in(base_key, idx)), and entry b
+of a batch run with `seed` takes the base key split(PRNGKey(seed), B)[b]
+(`sequence_key`), so entry b equals `run_sequence_scan(..., key=
+sequence_key(seed, b))`.
 """
 
 from __future__ import annotations
@@ -23,14 +30,13 @@ import numpy as np
 import torch
 
 from vislam_tpu_torch.engine.engine import (
+    FrameKey,
     FrameResult,
     VIOEngine,
-    frame_generator,
     require_device,
 )
 from vislam_tpu_torch.engine.state import EngineState
-from vislam_tpu_torch.frontend.essential import gumbel_hypotheses
-from vislam_tpu_torch.frontend.pose import gumbel_noise
+from vislam_tpu_torch.utils import prng
 
 
 class SequenceInputs(NamedTuple):
@@ -110,24 +116,28 @@ def stage_dataset(dataset, start: int, end: int, imu_window: int = 16,
 
 
 def run_sequence_scan(eng: VIOEngine, state0: EngineState, inputs: SequenceInputs,
-                      kf_gt_pos0=None, seed: int = 0, noises=None):
+                      kf_gt_pos0=None, seed: int = 0, noises=None, key=None):
     """Run the step over every frame of `inputs`.
 
     Returns (final_state, FrameResult with leading dim N). Frame n draws its
-    RANSAC hypotheses from `frame_generator(seed, n)`, or takes
-    noises[n] = (noise, noise_rescue) when given.
+    RANSAC hypotheses under fold_in(base, n), base the key `key` ((2,)
+    uint32, e.g. `sequence_key`) or PRNGKey(seed) (the reference's scan), or
+    takes noises[n] = (noise, noise_rescue) when given. The base key and
+    the frame indices go to the device once, before the frames.
     """
     state = state0
     kf_gt_pos = state0.p_wc.clone() if kf_gt_pos0 is None else \
         torch.as_tensor(kf_gt_pos0, dtype=torch.float32).to(eng.device)
+    N = inputs.images.shape[0]
+    base = prng.key_tensor(prng.prng_key(seed) if key is None else key, eng.device)
+    index = torch.arange(N, dtype=torch.int32, device=eng.device)
     results = []
-    for n in range(inputs.images.shape[0]):
+    for n in range(N):
         gt_p = inputs.gt_pos[n]
         gt_norm = torch.linalg.vector_norm(gt_p - kf_gt_pos) if inputs.use_gt_scale else -1.0
         noise, noise_rescue = (None, None) if noises is None else noises[n]
         state, res = eng._step(state, inputs.images[n], inputs.imu[n], inputs.imu_dt[n],
-                               gt_norm, frame_generator(seed, n, eng.device),
-                               noise, noise_rescue)
+                               gt_norm, FrameKey(base, index[n]), noise, noise_rescue)
         kf_gt_pos = torch.where(res.is_keyframe, gt_p, kf_gt_pos)
         results.append(res)
     return state, FrameResult(*[torch.stack(f) for f in zip(*results)])
@@ -144,28 +154,18 @@ def make_batch_inputs(inputs: Sequence[SequenceInputs]) -> SequenceInputs:
                           use_gt_scale=flags.pop())
 
 
-def sequence_seed(seed: int, b: int) -> int:
-    """The seed of sequence b in a batch run with `seed` (the role of the
+def batch_keys(seed: int, B: int, offset: int = 0) -> np.ndarray:
+    """The base keys (B, 2) uint32 of entries offset .. offset + B - 1 of a
+    batch run with `seed`: the reference's split(PRNGKey(seed), total)
+    rows, which do not depend on the batch's size (partitionable mode)."""
+    return prng.split(prng.prng_key(seed), offset + B)[offset:]
+
+
+def sequence_key(seed: int, b: int) -> np.ndarray:
+    """The base key (2,) uint32 of entry b of a batch run with `seed` (the
     reference's split(PRNGKey(seed), B)[b]): entry b of run_batch_scan
-    draws as run_sequence_scan(..., seed=sequence_seed(seed, b)) does."""
-    return int(np.random.SeedSequence([seed, b]).generate_state(1, np.uint32)[0])
-
-
-def batch_noises(eng: VIOEngine, seeds: Sequence[int], n: int, M: int):
-    """Frame n's RANSAC draws of every sequence of a batch, (B, 2, H, M)
-    each for the main and the rescue solve: sequence b's frame generator
-    (`frame_generator(seeds[b], n)`), main first, then rescue, as the
-    unbatched step draws them; with vision-only rotation the (B, H, 8, M)
-    essential hypotheses and no rescue draw (None). These draws are the
-    only per-sequence work of a batched frame: vmap refuses a random draw
-    inside the map, so they are made before it, B generators a frame."""
-    H = eng.cfg.backend.ransac_hyps
-    gens = [frame_generator(s, n, eng.device) for s in seeds]
-    if eng.cfg.engine.vision_rotation:
-        return torch.stack([gumbel_hypotheses(g, H, M, eng.device) for g in gens]), None
-    draws = [(gumbel_noise(g, H, M, eng.device), gumbel_noise(g, H, M, eng.device))
-             for g in gens]
-    return torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
+    equals run_sequence_scan(..., key=sequence_key(seed, b))."""
+    return batch_keys(seed, 1, b)[0]
 
 
 def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceInputs,
@@ -181,40 +181,47 @@ def run_batch_scan(eng: VIOEngine, states0: EngineState, inputs_batch: SequenceI
     batched distance since each sequence's last keyframe (kept on the
     device), GT-free with the host float -1.0 for every sequence.
 
-    Sequence b draws frame n's hypotheses from
-    `frame_generator(sequence_seed(seed, offset + b), n)`, so entry b equals
-    run_sequence_scan(..., seed=sequence_seed(seed, offset + b)); offset is
-    entry 0's index in a larger batch (`parallel/batch_runner.py` runs a
-    slice of one). `noises[b][n] =
-    (noise, noise_rescue)` overrides them (stacked once, before the frames;
-    with vision-only rotation noise is (H, 8, M) and noise_rescue None).
+    Sequence b draws frame n's hypotheses under fold_in(sequence_key(seed,
+    offset + b), n), so entry b equals run_sequence_scan(...,
+    key=sequence_key(seed, offset + b)); offset is entry 0's index in a
+    larger batch (`parallel/batch_runner.py` runs a slice of one). Each
+    frame's draws of the whole batch are one launch (the draw op's vmap
+    rule). `noises[b][n] = (noise, noise_rescue)` overrides them (stacked
+    once, before the frames; with vision-only rotation noise is (H, 8, M)
+    and noise_rescue None).
     Returns (final state (B, ...), FrameResult (B, N, ...)).
     """
     B, N = inputs_batch.images.shape[:2]
-    M = states0.kf_feat.uv.shape[-2]
     kf_gt_pos = torch.as_tensor(kf_gt_pos0, dtype=torch.float32).to(eng.device)
     rescue = not eng.cfg.engine.vision_rotation
-    if noises is not None:
+    drawn = noises is None
+    if drawn:
+        base = prng.key_tensor(batch_keys(seed, B, offset), eng.device)
+        index = torch.arange(N, dtype=torch.int32, device=eng.device)
+        given = [[None] * N, [None] * N]
+    else:
         given = [torch.stack([torch.stack([nz[j] for nz in row]) for row in noises], 1)
                  if j == 0 or rescue else [None] * N
                  for j in (0, 1)]          # (N, B, ...) each
-    seeds = [sequence_seed(seed, offset + b) for b in range(B)]
     gt_scale = inputs_batch.use_gt_scale
 
-    def step(state, image, imu, imu_dt, gt_norm, noise, noise_rescue):
-        return eng._step(state, image, imu, imu_dt, gt_norm if gt_scale else -1.0, None,
+    def step(state, image, imu, imu_dt, gt_norm, base, index, noise, noise_rescue):
+        key = FrameKey(base, index) if drawn else None
+        return eng._step(state, image, imu, imu_dt, gt_norm if gt_scale else -1.0, key,
                          noise, noise_rescue)
 
-    batched = torch.func.vmap(step, in_dims=(0, 0, 0, 0, 0 if gt_scale else None, 0,
-                                             0 if rescue else None))
+    batched = torch.func.vmap(step, in_dims=(0, 0, 0, 0, 0 if gt_scale else None,
+                                             0 if drawn else None, None,
+                                             None if drawn else 0,
+                                             0 if rescue and not drawn else None))
     state, results = states0, []
     for n in range(N):
-        noise, noise_rescue = batch_noises(eng, seeds, n, M) if noises is None \
-            else (given[0][n], given[1][n])
         gt_p = inputs_batch.gt_pos[:, n]
         gt_norm = torch.linalg.vector_norm(gt_p - kf_gt_pos, dim=-1) if gt_scale else None
         state, res = batched(state, inputs_batch.images[:, n], inputs_batch.imu[:, n],
-                             inputs_batch.imu_dt[:, n], gt_norm, noise, noise_rescue)
+                             inputs_batch.imu_dt[:, n], gt_norm,
+                             base if drawn else None, index[n] if drawn else None,
+                             given[0][n], given[1][n])
         kf_gt_pos = torch.where(res.is_keyframe[:, None], gt_p, kf_gt_pos)
         results.append(res)
     return state, FrameResult(*[torch.stack(f, 1) for f in zip(*results)])

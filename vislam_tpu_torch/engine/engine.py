@@ -42,12 +42,11 @@ from vislam_tpu_torch.engine.bootstrap import vi_align_window
 from vislam_tpu_torch.engine.refine import check_gauge, refine_window
 from vislam_tpu_torch.engine.state import EngineState, init_state, tree_where
 from vislam_tpu_torch.frontend.descriptor import DescriptorGeometry
-from vislam_tpu_torch.frontend.essential import gumbel_hypotheses, ransac_essential
+from vislam_tpu_torch.frontend.essential import ransac_essential
 from vislam_tpu_torch.frontend.features import Features, extract_features
 from vislam_tpu_torch.frontend.match import match_descriptors
 from vislam_tpu_torch.frontend.pyramid import build_pyramid
 from vislam_tpu_torch.frontend.pose import (
-    gumbel_noise,
     ransac_translation,
     resolve_direction_sign,
     rotation_compensated_disparity,
@@ -59,6 +58,8 @@ from vislam_tpu_torch.inertial.preintegration import (
     compose,
     preintegrate,
 )
+from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+from vislam_tpu_torch.utils import prng
 from vislam_tpu_torch.utils.config import SystemConfig
 
 class FrameResult(NamedTuple):
@@ -140,14 +141,32 @@ def nanmedian(x):
     return s.index_select(0, low)[0] * lw + s.index_select(0, high)[0] * hw
 
 
-def frame_generator(seed: int, idx: int, device) -> torch.Generator:
-    """The RANSAC generator of frame `idx`: a function of (seed, idx) only,
-    so a loop of `step` and `run_sequence_scan` draw the same hypotheses
-    (the role of the reference's fold_in(PRNGKey(seed), idx))."""
-    state = np.random.SeedSequence([seed, idx]).generate_state(1, np.uint64)[0]
-    g = torch.Generator(device=device)
-    g.manual_seed(int(state >> np.uint64(1)))
-    return g
+class FrameKey(NamedTuple):
+    """A frame's RANSAC key on the device: the reference's fold_in(base,
+    index), folded in by the draw kernel (`ops/threefry_kernel.py`) so that
+    neither half is drawn or computed on the host per frame."""
+
+    base: torch.Tensor    # (2,) int32, the uint32 key's bits
+    index: torch.Tensor   # () int32
+
+
+def frame_key(seed: int, idx: int) -> np.ndarray:
+    """The host key of frame `idx` of a run with `seed`: the reference's
+    fold_in(PRNGKey(seed), idx), (2,) uint32."""
+    return prng.fold_in(prng.prng_key(seed), idx)
+
+
+# The Gumbel fields of a frame's draws, as folds of its key: the
+# translation RANSAC's split(key) -> (ka, kb); the rescue's
+# split(fold_in(key, 7)); the essential RANSAC's key itself.
+MAIN_PATHS = ((0,), (1,))
+RESCUE_PATHS = ((7, 0), (7, 1))
+ESSENTIAL_PATHS = ((),)
+
+
+def draw_fields(key: FrameKey, paths, size) -> torch.Tensor:
+    """(J, *size) Gumbel fields of a frame key's J paths: one launch."""
+    return threefry_gumbel(key.base.reshape(1, 2), key.index.reshape(1), paths, size)[0]
 
 
 def require_device(device) -> torch.device:
@@ -173,8 +192,10 @@ class VIOEngine:
         self.calib = calib
         self.cfg = cfg
         self.seed = seed
-        # Mirrors state.frame_idx (the reference's per-step key counter).
+        # Mirrors state.frame_idx (the reference's per-step key counter);
+        # frame n draws under fold_in(PRNGKey(seed), n).
         self._step_counter = 0
+        self._base_key = prng.key_tensor(prng.prng_key(seed), self.device)
         f32 = dict(dtype=torch.float32, device=self.device)
         self.R_bc = torch.as_tensor(np.asarray(calib.T_body_cam[:3, :3], np.float32),
                                     device=self.device)
@@ -200,10 +221,13 @@ class VIOEngine:
         """Restore the per-step draw counter (= state.frame_idx) on resume."""
         self._step_counter = int(n)
 
-    def _next_generator(self) -> torch.Generator:
-        gen = frame_generator(self.seed, self._step_counter, self.device)
+    def _next_key(self) -> FrameKey:
+        """The next frame's key: the counter goes up from pinned memory
+        without waiting (no host sync), the base key is already there."""
+        idx = torch.tensor([self._step_counter], dtype=torch.int32)
         self._step_counter += 1
-        return gen
+        return FrameKey(self._base_key,
+                        self._pinned(idx).to(self.device, non_blocking=True).reshape(()))
 
     def _pinned(self, t: torch.Tensor) -> torch.Tensor:
         """t in page-locked memory when it goes to the card: a copy from
@@ -260,7 +284,7 @@ class VIOEngine:
         `unpack_host_result(packed.cpu().numpy())`). The image may be uint8
         (cast on the device)."""
         img, imu_d, dt_d = self._upload(image, imu, imu_dt)
-        s, r = self._step(state, img, imu_d, dt_d, float(gt_t_norm), self._next_generator())
+        s, r = self._step(state, img, imu_d, dt_d, float(gt_t_norm), self._next_key())
         return s, pack_result(s, r)
 
     def step_host(self, state: EngineState, image, imu, imu_dt, gt_t_norm: float = -1.0):
@@ -276,13 +300,13 @@ class VIOEngine:
         rides a device carry (kf_gt_pos, updated where the frame is a
         keyframe, as `run_sequence_scan` carries it), so GT scale needs no
         fetch of the keyframe flag; gt_on (a host float) <= 0 selects the
-        IMU scale. Frame j draws from `frame_generator(seed, counter)`, as
-        `step` and `run_sequence_scan` do."""
+        IMU scale. Frame j draws under `frame_key(seed, counter)`, as `step`
+        and `run_sequence_scan` do."""
         img, imu_d, dt_d, gt_d = self._upload(image, imu, imu_dt, gt_p)
         kf_gt = self._pinned(torch.as_tensor(kf_gt_pos, dtype=torch.float32)).to(
             self.device, non_blocking=True)
         gt_norm = torch.linalg.vector_norm(gt_d - kf_gt) if gt_on > 0.0 else -1.0
-        s, r = self._step(state, img, imu_d, dt_d, gt_norm, self._next_generator())
+        s, r = self._step(state, img, imu_d, dt_d, gt_norm, self._next_key())
         return s, torch.where(r.is_keyframe, gt_d, kf_gt), pack_result(s, r)
 
     def step(self, state: EngineState, image, imu, imu_dt, gt_t_norm: float = -1.0,
@@ -292,24 +316,25 @@ class VIOEngine:
 
         noise / noise_rescue: optional (2, H, M) Gumbel noise for the main
         and the rescue RANSAC draws ((H, 8, M) for the essential-matrix
-        RANSAC of vision-only rotation, which has no rescue); drawn from
-        this frame's generator (`frame_generator(seed, frame index)`) when
-        not given.
+        RANSAC of vision-only rotation, which has no rescue); drawn under
+        this frame's key (`frame_key(seed, frame index)`, the reference's)
+        when not given.
         """
         gt_t_norm = float(gt_t_norm)
         return self._step(state, self._to_device(image), self._to_device(imu),
-                          self._to_device(imu_dt), gt_t_norm, self._next_generator(),
+                          self._to_device(imu_dt), gt_t_norm, self._next_key(),
                           noise, noise_rescue)
 
     def _step(self, state: EngineState, image, imu, imu_dt, gt_t_norm,
-              gen: torch.Generator | None, noise=None, noise_rescue=None):
+              key: FrameKey | None, noise=None, noise_rescue=None):
         """The step body. gt_t_norm: a () device tensor or a float, >= 0 (GT
         scale), or a negative float (GT-free: IMU scale, the alignment).
 
         The RANSAC draws come from `noise` / `noise_rescue`, or where one is
-        not given from `gen`. Under `torch.func.vmap` (`run_batch_scan`)
-        gen is None and both draws are inputs: vmap refuses a random draw
-        inside the map."""
+        not given from `key` (the reference's keys: main split(key), rescue
+        split(fold_in(key, 7)), essential key), all of a frame's draws in
+        one launch. Under `torch.func.vmap` (`run_batch_scan`) the key's
+        base is mapped and the launch serves the whole batch."""
         gt_free = not torch.is_tensor(gt_t_norm) and gt_t_norm < 0
         cfg = self.cfg
         fe, be, en = cfg.frontend, cfg.backend, cfg.engine
@@ -381,14 +406,21 @@ class VIOEngine:
         # ---------------- two-view relative pose
         H_hyp, M = be.ransac_hyps, uv_i.shape[0]
         vision = en.vision_rotation
-        if gen is None and (noise is None or (noise_rescue is None and not vision)):
-            raise ValueError("the step needs noise and noise_rescue, or a generator")
+        rescue = fe.guided_fallback_px > 0 and fe.guided_gate_px == 0 and not vision
+        paths = (ESSENTIAL_PATHS if vision else MAIN_PATHS) if noise is None else ()
+        paths += RESCUE_PATHS if rescue and noise_rescue is None else ()
+        if paths:
+            if key is None:
+                raise ValueError("the step needs noise and noise_rescue, or a key")
+            fields = draw_fields(key, paths, (H_hyp, 8, M) if vision else (H_hyp, M))
+            if noise is None:
+                noise, fields = (fields[0], None) if vision else (fields[:2], fields[2:])
+            if rescue and noise_rescue is None:
+                noise_rescue = fields
         used_fallback = torch.zeros((), dtype=torch.bool, device=self.device)
         if vision:
             # Vision-only rotation (no IMU): rotation and translation
             # direction from the essential matrix.
-            if noise is None:
-                noise = gumbel_hypotheses(gen, H_hyp, M, self.device)
             est_e = ransac_essential(rays_i, rays_j, solve_mask, num_hyps=H_hyp,
                                      thresh=be.ransac_thresh, uv_i=uv_i,
                                      dispersion_pow=be.ransac_dispersion_pow, noise=noise)
@@ -397,10 +429,6 @@ class VIOEngine:
             est_inliers = est_e.num_inliers
             est_inlier_mask = est_e.inlier_mask
         else:
-            if noise is None:
-                noise = gumbel_noise(gen, H_hyp, M, self.device)
-            if noise_rescue is None:
-                noise_rescue = gumbel_noise(gen, H_hyp, M, self.device)
             R_ji = R_ji_imu
             est = ransac_translation(rays_i, rays_j, R_ji, solve_mask, num_hyps=H_hyp,
                                      thresh=be.ransac_thresh, uv_i=uv_i,
@@ -409,7 +437,7 @@ class VIOEngine:
             est_inliers = est.num_inliers
             est_inlier_mask = est.inlier_mask
 
-        if fe.guided_fallback_px > 0 and fe.guided_gate_px == 0 and not vision:
+        if rescue:
             # Rescue (ungated runs only; an always-gated match has nothing to
             # rescue): re-match inside the IMU-rotation-predicted disc and
             # re-solve; taken when the ungated solve is catastrophic (inlier

@@ -34,7 +34,9 @@ def run_vio_sequence(
     GT step norm); gt_scale=False uses the IMU (visual-inertial) scale.
     online_ba runs refine_window after each keyframe promotion (host loop).
     vi_factors overrides cfg.backend.vi_factors (None leaves it as
-    configured). seed is the engine's RANSAC seed (`VIOEngine(seed=...)`).
+    configured). seed is the engine's RANSAC seed (`VIOEngine(seed=...)`):
+    the reference's stream, so the run draws the hypotheses the reference
+    harness's run at that seed draws, on the card and on the CPU alike.
     """
     import torch
 

@@ -24,8 +24,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from vislam_tpu_torch.frontend.pose import gumbel
 from vislam_tpu_torch.lie.so3 import orthonormalize
+from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
 
 # Squarings of the shifted inverse in each of the two phases of
 # `smallest_eigvec_sym`.
@@ -40,10 +40,11 @@ class EssentialEstimate(NamedTuple):
     num_inliers: torch.Tensor  # () int32
 
 
-def gumbel_hypotheses(generator: torch.Generator, num_hyps: int, M: int, device):
-    """(H, 8, M) Gumbel noise: the 8 correspondences of each of H hypotheses
-    (jax.random.categorical's draw, whose (H, 8, M) noise the tests feed in)."""
-    return gumbel(generator, (num_hyps, 8, M), device)
+def gumbel_hypotheses(key: torch.Tensor, num_hyps: int, M: int):
+    """(H, 8, M) Gumbel noise under `key` ((2,) int32): the 8
+    correspondences of each of H hypotheses, the reference's
+    categorical(key, logits, shape=(H, 8))."""
+    return threefry_gumbel(key.reshape(1, 2), None, ((),), (num_hyps, 8, M))[0, 0]
 
 
 def _epipolar_design(rays_i, rays_j):
@@ -187,7 +188,7 @@ def ransac_essential(
     rays_i,
     rays_j,
     mask,
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     num_hyps: int = 256,
     thresh: float = 0.01,
     uv_i=None,
@@ -197,8 +198,8 @@ def ransac_essential(
     """Two-view relative pose from correspondences alone.
 
     rays_*: (M, 3) unit camera rays; mask: (M,) valid matches; the
-    hypotheses come from `noise` ((H, 8, M) Gumbel) or are drawn from
-    `generator`. thresh is on the algebraic residual |x_j^T E x_i| with
+    hypotheses come from `noise` ((H, 8, M) Gumbel) or are drawn under
+    `key` ((2,) int32, the reference's key). thresh is on the algebraic residual |x_j^T E x_i| with
     ||E||_F = sqrt(2). dispersion_pow > 0 (with uv_i (M, 2)): score =
     inliers x (spatial std of the inliers)^pow.
     """
@@ -206,7 +207,7 @@ def ransac_essential(
     A = _epipolar_design(rays_i, rays_j)  # (M, 9)
     w = mask.float()
     if noise is None:
-        noise = gumbel_hypotheses(generator, num_hyps, M, rays_i.device)
+        noise = gumbel_hypotheses(key, num_hyps, M)
 
     # Hypotheses: 8 weighted-random matches each.
     logits = torch.log(w + 1e-9)

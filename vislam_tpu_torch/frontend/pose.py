@@ -15,6 +15,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+
 
 class TranslationEstimate(NamedTuple):
     t_dir: torch.Tensor        # (3,) unit translation direction, frame-j coords
@@ -48,19 +50,12 @@ def rotation_compensated_disparity(uv_i, uv_j, mask, R_ji, fx, fy, cx, cy):
     return torch.sum(d * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
-def gumbel(generator: torch.Generator, shape, device):
-    """Standard Gumbel noise of `shape` from `generator` on `device`.
-    Sampling categorical(logits) is argmax(logits + noise) along the last
-    axis (the Gumbel-max trick, which is how jax.random.categorical
-    samples)."""
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device)
-    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
-
-
-def gumbel_noise(generator: torch.Generator, num_hyps: int, M: int, device):
-    """(2, H, M) Gumbel noise for the two draws of the translation RANSAC."""
-    return gumbel(generator, (2, num_hyps, M), device)
+def gumbel_noise(key: torch.Tensor, num_hyps: int, M: int):
+    """(2, H, M) Gumbel noise of the translation RANSAC's two draws under
+    `key` ((2,) int32 on the draws' device), as the reference draws them:
+    ka, kb = split(key), then categorical(ka / kb, logits, shape=(H,)),
+    which is argmax(logits + gumbel(k, (H, M))) (the Gumbel-max trick)."""
+    return threefry_gumbel(key.reshape(1, 2), None, ((0,), (1,)), (num_hyps, M))[0]
 
 
 def smallest_eigvec_sym3(S):
@@ -102,7 +97,7 @@ def ransac_translation(
     rays_j,
     R_ji,
     mask,
-    generator: Optional[torch.Generator] = None,
+    key: Optional[torch.Tensor] = None,
     num_hyps: int = 512,
     thresh: float = 0.02,
     uv_i=None,
@@ -112,8 +107,8 @@ def ransac_translation(
     """Vectorized RANSAC for the translation direction.
 
     rays_*: (M, 3); R_ji from the IMU; mask: (M,) valid matches. The
-    hypotheses come from `noise` ((2, H, M) Gumbel; pass the reference's to
-    score the same hypotheses) or are drawn from `generator`.
+    hypotheses come from `noise` ((2, H, M) Gumbel) or are drawn under
+    `key` ((2,) int32, the reference's key: the same hypotheses).
 
     dispersion_pow > 0 (needs uv_i (M, 2)): score = inliers x (spatial
     std of the inlier set)^pow, which favours the spread-out static mode
@@ -124,7 +119,7 @@ def ransac_translation(
     w = mask.float() * (n_norm > 1e-5).float()
 
     if noise is None:
-        noise = gumbel_noise(generator, num_hyps, M, rays_i.device)
+        noise = gumbel_noise(key, num_hyps, M)
     logits = torch.log(w + 1e-9)
     idx_a = torch.argmax(logits + noise[0], dim=-1)
     idx_b = torch.argmax(logits + noise[1], dim=-1)

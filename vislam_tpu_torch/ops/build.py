@@ -33,7 +33,7 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-SOURCES = ("response_nms", "fed_evolve", "match_top2")
+SOURCES = ("response_nms", "fed_evolve", "match_top2", "threefry_gumbel")
 
 _loaded: dict = {}
 

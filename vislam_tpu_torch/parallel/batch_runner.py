@@ -4,8 +4,9 @@ Many sequences run at once, the batch sharded over the ranks of a mesh
 axis ("seq"): each rank steps its contiguous slice with
 `engine/batch.py::run_batch_scan` (one vmapped step per frame for the
 slice), with no communication inside the step. Entry b of the global batch
-draws from its global index (`sequence_seed(seed, b)`), so a sharded run
-equals the one-process batch entry by entry. `gather_batch` assembles the
+draws under its global index's key (`sequence_key(seed, b)`, the
+reference's split(PRNGKey(seed), B)[b], also under process_local), so a
+sharded run equals the one-process batch entry by entry. `gather_batch` assembles the
 slices on every rank afterwards.
 """
 
