@@ -31,11 +31,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
      frames, hessian and fast on both nonlinear levels, and the BRIEF-256
      match (D = 256, a_group 1) ungated and gated, each against the
      per-frame kernel calls and the twin;
-     then phase random: the draw kernel (threefry_gumbel: the reference's
-     threefry keys and Gumbel noise) against its twin, bit for bit on the
-     card and against the CPU's twin, at the default path's call (one
-     frame key's main and rescue fields, 4 x 512 x 768), the essential
-     RANSAC's (512 x 8 x 768) and vmapped over 8 keys (one launch);
+     then phase random: the draw kernel against its twin on the card and
+     against the CPU's twin: threefry_categorical (the reference's
+     jax.random.categorical, the RANSAC's draws) index for index at the
+     default path's calls (one frame key's main and rescue draws, 2 x 512
+     of M = 768 each, logits log(w + 1e-9) of a real match mask and of a
+     real gated re-match's), batch_vision's essential draw (its 4 keys
+     vmapped, 512 x 8 of its K, on its own match masks' logits; one
+     launch) and vmapped over 8 keys with 8 logits rows (one launch);
   3. paths: run_sequence_scan over a 480x752 synthetic sequence, K = 768,
      from the true initial state, for each frontend the port runs (GT
      scale) and for the GT-free modes:
@@ -53,7 +56,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      Each path resets every launch counter just before its run and reads
      them just after; it fails unless each of its kernels ran exactly the
      expected times per frame. Each checks finite poses, prints frames/s
-     (the median of 3 timed runs) and the
+     (the median of 3 timed runs; the slam path's one run) and the
      host syncs left inside a step (sync debug mode), and runs its
      first 10 frames again on the CPU (plain twins; both runs at seed 0,
      no draw shipped across: the draw kernel and its twin give the same
@@ -79,7 +82,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
                    GT scale, 4 x 12 frames
        batch_akaze the akaze path's (nonlinear + fast + BRIEF-256), GT
                    scale, 4 x 12 frames
-     each printing aggregate frames/s (B x N frames over wall, 3 runs),
+     each printing aggregate frames/s (B x N frames over wall, 3 runs;
+     batch_slam 1),
      exact launch counts per batched step (the nonlinear paths: 2 FED
      calls of 5 launches, 2 of the detector, 1 _gradmag2, 2 matches), 0
      host syncs per batched step, peak memory, each entry's ATE, and each
@@ -213,12 +217,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
      the HBM rate and its operations over the peak rate of their type:
      float32 on the CUDA cores, the match's a.b as 3xTF32 on the tensor
      cores, the window match's, whose operands are bfloat16 values, as
-     one bfloat16 pass, the draw kernel's int32 and float64 operations on
-     the CUDA cores) and the share of the graph time the bound is;
+     one bfloat16 pass, the draw kernels' int32 operations on the CUDA
+     cores) and the share of the graph time the bound is;
   7. traces: for each long path, torch.profiler over 2 frames (slam:
      1; 3 before the batched nonlinear paths came), and for each batched
-     path over its first step (2 on batch8 and batch32 until then) and one
-     step's RANSAC draws alone (one launch), and one frame (batched step)
+     path but batch_slam over its first step (2 on batch8 and batch32 until
+     then) and one
+     step's main RANSAC draw alone (one launch), and one frame (batched step)
      of each variant path: the device busy share, launches per frame (per
      batched step) and the kernels by device time.
 Each phase prints its own wall time ("phase ...: s"). vmap's per-example
@@ -236,7 +241,8 @@ bound_ms of a row are sums over the calls one frame makes (the two levels of
 a response family; FED's 4- and 8-step cycles; the ungated and gated match
 at K = 768; the window match's one batched call; the batched rows the
 calls of one batched step at B = 8, the rows named batch_kaze and
-batch_akaze at B = 4), launches_per_call lists
+batch_akaze at B = 4, the essential draw's row batch_vision's one call at
+B = 4), launches_per_call lists
 those calls' device launches, and
 library_ms is null: no single PyTorch call computes any of the four
 functions. Imports nothing of JAX.
@@ -310,13 +316,14 @@ FED_FLOP_PER_PX_STEP = 61
 # bfloat16 rate.
 MATCH_FLOP_PER_PAIR = 7
 GATE_FLOP_PER_PAIR = 6
-# threefry_gumbel's int32 operations per value, counted from the function
+# The draw kernels' int32 operations per value, counted from the function
 # (utils/prng.py): the hash's 2 key adds, 20 rounds of add, rotate and xor,
 # 5 injections of 2 adds, then the words' xor, the shift and the OR into
-# the exponent: 75. Its bound is these against the bytes written. The two
-# logs are left out: the function needs two float32 logs (JAX's gumbel),
-# a few operations a value on pipes that issue beside the int32 ones; the
-# port's float64 series is its choice, for bit-equal logs on both devices.
+# the exponent: 75. Their bound is these against the bytes moved. The two
+# logs (and the categorical's add and compare) are left out: the function
+# needs two float32 logs (JAX's gumbel), a few operations a value on pipes
+# that issue beside the int32 ones; the port's float64 logs are its
+# choice, for bit-equal logs on both devices.
 THREEFRY_INT32_OPS_PER_VALUE = 75
 
 
@@ -334,11 +341,14 @@ class Path:
     backend: dict = dataclasses.field(default_factory=dict)
     gt_scale: bool = True
     latch: str = ""
+    runs: int = 3        # timed runs of a long path (frames/s: their median)
 
 
-# Every path's frame draws its RANSAC noise in one threefry_gumbel launch
-# (main and rescue fields together).
-DRAW = {"threefry_gumbel": 1}
+# Every path's frame draws its RANSAC hypotheses with the categorical draw
+# kernel, one launch per solve: the main solve's and the rescue's (the
+# always-gated and vision-only steps have no rescue: DRAW_ONE).
+DRAW = {"threefry_categorical": 2}
+DRAW_ONE = {"threefry_categorical": 1}
 PATHS = {
     "default": Path({"shi_tomasi": 2, "match_top2": 2, **DRAW}),
     "kaze": Path({"fed_evolve": 2, "hessian": 2, "_gradmag2": 1, "match_top2": 2, **DRAW},
@@ -357,10 +367,11 @@ PATHS = {
                       latch="vi_aligned"),
     # Per frame: the per-frame and guided matches, then the window match
     # (the one batched call).
+    # One timed run (~45 s on a slow host; three took 130 s).
     "slam": Path({"shi_tomasi": 2, "match_top2": 3, "match_top2_batched": 1, **DRAW},
                  SLAM_FRAMES,
                  gt_scale=False, latch="vi_engaged",
-                 backend=dict(vi_factors=True, refine_in_step=True)),
+                 backend=dict(vi_factors=True, refine_in_step=True), runs=1),
 }
 SLAM_PATH = "slam"
 # Frames each long path's profiler trace covers: the trace's processing
@@ -387,13 +398,14 @@ class BatchPath:
     backend: dict = dataclasses.field(default_factory=dict)
     gt_scale: bool = True
     accuracy: bool = False
-    trace_steps: int = 2
+    trace_steps: int = 2     # 0: not traced
+    runs: int = 3            # timed runs (aggregate frames/s: their median)
     note: str = ""
 
 
 # Per batched step: one response launch per level, the two matches (main,
-# gated rescue; A per pair) and the draws (every sequence's keys folded
-# into one launch) for the whole batch; SLAM mode adds the window match
+# gated rescue; A per pair) and the two draws (every sequence's keys folded
+# into each launch) for the whole batch; SLAM mode adds the window match
 # (an A per sequence shared by its W slots).
 _BATCH_STEP = {"shi_tomasi": 2, "match_top2": 2, "match_top2_per_pair": 2,
                "match_top2_gated": 1, **DRAW}
@@ -411,13 +423,15 @@ BATCH_PATHS = {
                               "(was 2) to make room for batch_kaze and batch_akaze"),
     "batch_slam": BatchPath(4, 10, {**_BATCH_STEP, "match_top2": 3, "match_top2_batched": 1},
                             backend=dict(vi_factors=True, refine_in_step=True), gt_scale=False,
-                            trace_steps=1,
+                            trace_steps=0, runs=1,
                             note="cut in depth from 60 frames to 30, then to 12 to make "
                                  "room for phase eval, then to 10 (the frames each entry "
                                  "is held against its unbatched run) for batch_kaze and "
                                  "batch_akaze: at 60 its three timed runs took the whole "
                                  "script past half of its 1200 s limit; vi_engaged (the "
-                                 "promotion deadline, ~frame 35) is printed, not required"),
+                                 "promotion deadline, ~frame 35) is printed, not required; "
+                                 "then timed once and not traced (77 s and 54 s on a slow "
+                                 "host) to pay for the categorical draw kernel's rows"),
     # The nonlinear frontends batched: per step the folded FED's two cycles
     # (5 launches), the detector and the contrast statistic (_gradmag2)
     # folded, and the two matches (AKAZE's at D = 256, a_group 1).
@@ -462,11 +476,17 @@ def _time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
 
 def _turns(plain, kernel):
     """Mean times of (kernel, plain) measured in turns plain, kernel,
-    kernel, plain within one process on one card."""
-    p1 = _time_ms(plain)
+    kernel, plain within one process on one card; a plain version slower
+    than 1 ms a call is timed over ~100 ms of calls (at least 5), not 100
+    calls."""
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    n = max(5, min(100, int(0.1 / max(time.perf_counter() - t0, 1e-6))))
+    p1 = _time_ms(plain, n, min(n, 10))
     k1 = _time_ms(kernel)
     k2 = _time_ms(kernel)
-    p2 = _time_ms(plain)
+    p2 = _time_ms(plain, n, min(n, 10))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -649,9 +669,10 @@ def _config(frontend: dict, backend: dict):
 
 
 def _to_device(tree, dev):
-    """Every tensor of a nested NamedTuple moved to `dev`."""
+    """Every tensor of a nested NamedTuple (or tuple) moved to `dev`."""
     if isinstance(tree, tuple):
-        return type(tree)(*[_to_device(x, dev) for x in tree])
+        items = [_to_device(x, dev) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
@@ -1249,87 +1270,154 @@ def _batch_nonlinear_rows(seqs, gate_px):
     return rows
 
 
-def _threefry_check(label, keys, index, paths, size, vmapped=False):
-    """The draw kernel's fields against its twin on the card and on the
-    CPU, bit for bit (the twin's bits too: card against CPU); vmapped, as
-    the batched step calls it (one launch for every key) against the twin
-    on all the keys."""
-    from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel, threefry_gumbel_plain
-    from vislam_tpu_torch.utils import prng
+def _categorical_call(keys, index, paths, logits, shape, vmapped=False):
+    """A call of the categorical op; vmapped, as the batched step calls it:
+    each entry's key and logits row mapped, the frame index shared."""
+    from vislam_tpu_torch.ops.threefry_kernel import threefry_categorical
 
     if vmapped:
-        before = threefry_gumbel.launches
-        out = torch.func.vmap(lambda k, i: threefry_gumbel(k[None], i.reshape(1), paths,
-                                                           size)[0],
-                              in_dims=(0, None))(keys, index[0])
-        if threefry_gumbel.launches - before != 1:
-            _fail(f"threefry_gumbel {label}: {threefry_gumbel.launches - before} launches "
-                  f"under vmap, expected 1")
-        index = index[:1].expand(keys.shape[0]).contiguous()
-    else:
-        out = threefry_gumbel(keys, index, paths, size)
+        return lambda: torch.func.vmap(lambda k, lg: threefry_categorical(
+            k[None], index, paths, lg[None], shape)[0])(keys, logits)
+    return lambda: threefry_categorical(keys, index, paths, logits, shape)
+
+
+def _categorical_check(label, keys, index, paths, logits, shape, vmapped=False):
+    """The categorical kernel's indices against its twin on the card and on
+    the CPU, index for index; vmapped (`_categorical_call`): one launch for
+    every entry."""
+    from vislam_tpu_torch.ops.threefry_kernel import (threefry_categorical,
+                                                      threefry_categorical_plain)
+
+    before = threefry_categorical.launches
+    out = _categorical_call(keys, index, paths, logits, shape, vmapped)()
+    if threefry_categorical.launches - before != 1:
+        _fail(f"threefry_categorical {label}: {threefry_categorical.launches - before} "
+              f"launches, expected 1")
     torch.cuda.synchronize()
-    plain = threefry_gumbel_plain(keys, index, paths, size)
-    cpu = threefry_gumbel_plain(keys.cpu(), index.cpu(), paths, size)
-    k = prng.derive_keys(keys, [index] + list(paths[0]))
-    bits_equal = torch.equal(prng.random_bits(k, size).cpu(),
-                             prng.random_bits(k.cpu(), size))
-    err = (out - plain).abs().max().item()
-    same = torch.equal(out, plain) and torch.equal(out.cpu(), cpu)
-    print(f"kernel threefry_gumbel {label}: {tuple(out.shape)}; fields equal to the twin's on "
-          f"the card and on the CPU bit for bit: {same}; the twin's bits card = CPU: "
-          f"{bits_equal}; max_abs_err {err:.3e}", flush=True)
-    if not (same and bits_equal):
-        _fail(f"threefry_gumbel {label} disagrees with its twin")
-    return err
+    plain = threefry_categorical_plain(keys, index, paths, logits, shape)
+    cpu = threefry_categorical_plain(keys.cpu(), index.cpu(), paths, logits.cpu(), shape)
+    err = (out.reshape(plain.shape) - plain).abs().max().item()
+    same = torch.equal(out.reshape(plain.shape), plain) and torch.equal(
+        out.reshape(plain.shape).cpu(), cpu)
+    print(f"kernel threefry_categorical {label}: {tuple(out.shape)}; indices equal to the "
+          f"twin's on the card and on the CPU: {same}; max_abs_err {err}", flush=True)
+    if not same:
+        _fail(f"threefry_categorical {label} disagrees with its twin")
+    return float(err)
 
 
-def _threefry_measure(label, keys, index, paths, size, plain_launches=False):
-    from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel, threefry_gumbel_plain
+def _categorical_measure(label, keys, index, paths, logits, shape, plain_launches=False,
+                         vmapped=False):
+    """A categorical call (`_categorical_call`): its bytes are the keys, the
+    index and the logits read once and 8 bytes per drawn index written."""
+    from vislam_tpu_torch.ops.threefry_kernel import threefry_categorical_plain
 
-    n = keys.shape[0] * len(paths) * int(np.prod(size))
-    m = _measure(label, lambda: threefry_gumbel_plain(keys, index, paths, size),
-                 lambda: threefry_gumbel(keys, index, paths, size),
-                 4 * n + 8 * keys.shape[0] + 4 * index.numel(),
+    rows = max(keys.shape[0], logits.shape[0]) * len(paths) * int(np.prod(shape))
+    n = rows * logits.shape[-1]
+    m = _measure(label, lambda: threefry_categorical_plain(keys, index, paths, logits, shape),
+                 _categorical_call(keys, index, paths, logits, shape, vmapped),
+                 8 * rows + 4 * logits.numel() + 8 * keys.shape[0] + 4 * index.numel(),
                  [(THREEFRY_INT32_OPS_PER_VALUE * n, "int32",
                    f"{THREEFRY_INT32_OPS_PER_VALUE} int32 ops x {n} values")], 1)
     m["count_plain"] = plain_launches
     return m
 
 
-def random_phase(cfg_default):
-    """The draw kernel (threefry_gumbel) against its twin at the main path's
-    shapes: one frame's main and rescue fields (4 x 512 x 768 from the
-    frame key), the essential RANSAC's (512 x 8 x 768) and the batched
-    step's 8 keys under vmap; the kernel table's rows of the default path
-    (one frame's call; the essential's as another shape) and of batch8."""
+def _draw_logits(seq, fe, n: int):
+    """Logits log(w + 1e-9) of real match masks on the card, as the RANSAC
+    solves take them: frame 0's features against frames 1..n, ungated (the
+    main solve's) and gated in the rescue's disc around frame 0's own
+    pixels (the guided re-match's); each (n, K)."""
+    from vislam_tpu_torch.frontend.features import extract_features
+    from vislam_tpu_torch.frontend.match import match_descriptors
+
+    feats = [extract_features(torch.as_tensor(seq["images"][i]).to(DEV, torch.float32), fe)
+             for i in range(n + 1)]
+    a = feats[0]
+    main = [match_descriptors(a.desc, a.mask, b.desc, b.mask, ratio=fe.ratio_thresh,
+                              mutual=fe.mutual_check).mask for b in feats[1:]]
+    gated = [match_descriptors(a.desc, a.mask, b.desc, b.mask, ratio=fe.ratio_thresh,
+                               mutual=fe.mutual_check, uv_pred=a.uv, uv_b=b.uv,
+                               gate_radius=fe.guided_fallback_px).mask for b in feats[1:]]
+    print(f"phase random: logits of real match masks, frame 0 against 1..{n}: valid matches "
+          f"{[int(m.sum()) for m in main]} (gated {[int(m.sum()) for m in gated]}) of "
+          f"{a.mask.shape[0]}", flush=True)
+    return [torch.log(torch.stack(m).float() + 1e-9).contiguous() for m in (main, gated)]
+
+
+def _vision_logits(seqs):
+    """batch_vision's draw inputs: its B sequences' keys (run_batch_scan at
+    seed 0) and logits log(w + 1e-9) of each sequence's real match of
+    frames 0 and 1 under its frontend (one level), (B, K)."""
+    from vislam_tpu_torch.engine import batch_keys
+    from vislam_tpu_torch.frontend.features import extract_features
+    from vislam_tpu_torch.frontend.match import match_descriptors
+    from vislam_tpu_torch.utils import prng
+
+    B = BATCH_VISION[0]
+    fe = _variant_config(_batch_vision_variant()).frontend
+    masks = []
+    for s in seqs[:B]:
+        a, b = (extract_features(torch.as_tensor(s["images"][i]).to(DEV, torch.float32), fe)
+                for i in (0, 1))
+        masks.append(match_descriptors(a.desc, a.mask, b.desc, b.mask, ratio=fe.ratio_thresh,
+                                       mutual=fe.mutual_check).mask)
+    print(f"phase random: batch_vision's logits, frame 0 against 1 of its {B} sequences: valid "
+          f"matches {[int(m.sum()) for m in masks]} of {masks[0].shape[0]}", flush=True)
+    return (prng.key_tensor(batch_keys(0, B), DEV),
+            torch.log(torch.stack(masks).float() + 1e-9).contiguous())
+
+
+def random_phase(seq, seqs, cfg_default):
+    """The categorical draw kernel against its twin at the paths' shapes:
+    one frame's main and rescue draws (2 x 512 of 768 each, from the frame
+    key, on real match masks' logits), batch_vision's essential draw (its 4
+    keys vmapped, 512 x 8 of its K, on its real logits) and the batched
+    step's 8 keys and logits rows under vmap. The kernel table's rows: the
+    default path's (one frame's two calls), the essential's (batch_vision's
+    call) and batch8's."""
     from vislam_tpu_torch.engine import batch_keys
     from vislam_tpu_torch.engine.engine import ESSENTIAL_PATHS, MAIN_PATHS, RESCUE_PATHS
     from vislam_tpu_torch.utils import prng
 
     H, M = cfg_default.backend.ransac_hyps, cfg_default.frontend.max_keypoints
-    frame = MAIN_PATHS + RESCUE_PATHS
     base = prng.key_tensor(prng.prng_key(0)[None], DEV)
     index = torch.tensor([3], dtype=torch.int32, device=DEV)
     keys8 = prng.key_tensor(batch_keys(0, BATCH), DEV)
     index8 = index.expand(BATCH).contiguous()
-    err = max(_threefry_check(f"frame key, main and rescue, {len(frame)} x {H} x {M}", base,
-                              index, frame, (H, M)),
-              _threefry_check(f"essential {H} x 8 x {M}", base, index, ESSENTIAL_PATHS,
-                              (H, 8, M)),
-              _threefry_check(f"vmapped over {BATCH} keys", keys8, index, frame, (H, M),
-                              vmapped=True))
+    main, gated = _draw_logits(seq, cfg_default.frontend, BATCH)
+    keys_v, logits_v = _vision_logits(seqs)
+    Bv, Kv = logits_v.shape
+    cat = [("main", MAIN_PATHS, main), ("rescue", RESCUE_PATHS, gated)]
+    err = max([_categorical_check(f"frame key, {what}, 2 x {H} of {M}", base, index, paths,
+                                  lg[:1], (H,)) for what, paths, lg in cat]
+              + [_categorical_check(f"essential, batch_vision's {Bv} keys vmapped, {H} x 8 of "
+                                    f"{Kv}", keys_v, index, ESSENTIAL_PATHS, logits_v, (H, 8),
+                                    vmapped=True)]
+              + [_categorical_check(f"vmapped over {BATCH} keys and logits rows, {what}",
+                                    keys8, index, paths, lg, (H,), vmapped=True)
+                 for what, paths, lg in cat])
     source = "vislam_tpu_torch/ops/csrc/threefry_gumbel.cu"
-    replaces = "vislam_tpu/frontend/pose.py:115 (jax.random draws, XLA-fused; no Pallas kernel)"
-    one = _row("threefry_gumbel", "threefry_gumbel", source, replaces, err,
-               [_threefry_measure(f"threefry_gumbel frame, {len(frame)} x {H} x {M}", base,
-                                  index, frame, (H, M), plain_launches=True)],
-               [_threefry_measure(f"threefry_gumbel essential, {H} x 8 x {M}", base, index,
-                                  ESSENTIAL_PATHS, (H, 8, M))])
-    batch = _row("threefry_gumbel:batch8", "threefry_gumbel", source, replaces, err,
-                 [_threefry_measure(f"threefry_gumbel batch8, {BATCH} x {len(frame)} x {H} x "
-                                    f"{M}", keys8, index8, frame, (H, M))])
-    return [one, batch]
+    replaces = {"translation": "vislam_tpu/frontend/pose.py:118-119 (jax.random.categorical, "
+                               "XLA-fused; no Pallas kernel)",
+                "essential": "vislam_tpu/frontend/essential.py:115 (jax.random.categorical, "
+                             "XLA-fused; no Pallas kernel)"}
+    return [
+        _row("threefry_categorical", "threefry_categorical", source, replaces["translation"],
+             err, [_categorical_measure(f"threefry_categorical {what}, 2 x {H} of {M}", base,
+                                        index, paths, lg[:1], (H,), plain_launches=what == "main")
+                   for what, paths, lg in cat]),
+        _row("threefry_categorical:essential", "threefry_categorical", source,
+             replaces["essential"], err,
+             [_categorical_measure(f"threefry_categorical essential, batch_vision's {Bv} keys "
+                                   f"vmapped, {H} x 8 of {Kv}", keys_v, index, ESSENTIAL_PATHS,
+                                   logits_v, (H, 8), vmapped=True)]),
+        _row("threefry_categorical:batch8", "threefry_categorical", source,
+             replaces["translation"], err,
+             [_categorical_measure(f"threefry_categorical batch8 {what}, {BATCH} x 2 x {H} of "
+                                   f"{M}", keys8, index8, paths, lg, (H,))
+              for what, paths, lg in cat]),
+    ]
 
 
 def kernel_phase(seq, seqs, cfg_default):
@@ -1359,14 +1447,14 @@ def kernel_phase(seq, seqs, cfg_default):
 def stage_times(name, eng, state, inputs):
     """Where a frame's wall time goes: each stage alone, synchronised."""
     from vislam_tpu_torch.engine.bootstrap import vi_align_window
-    from vislam_tpu_torch.engine.engine import (MAIN_PATHS, RESCUE_PATHS, FrameKey, draw_fields,
-                                                frame_key)
+    from vislam_tpu_torch.engine.engine import MAIN_PATHS, FrameKey
     from vislam_tpu_torch.engine.refine import refine_window
     from vislam_tpu_torch.frontend.detect import detect_keypoints
     from vislam_tpu_torch.frontend.features import extract_features
     from vislam_tpu_torch.frontend.match import match_descriptors
     from vislam_tpu_torch.frontend.nonlinear import nonlinear_scale_space
-    from vislam_tpu_torch.frontend.pose import gumbel_noise, ransac_translation
+    from vislam_tpu_torch.frontend.pose import ransac_translation
+    from vislam_tpu_torch.ops.threefry_kernel import draw_categorical
     from vislam_tpu_torch.frontend.pyramid import build_pyramid
     from vislam_tpu_torch.inertial.filters import madgwick_scan
     from vislam_tpu_torch.inertial.preintegration import preintegrate
@@ -1378,7 +1466,7 @@ def stage_times(name, eng, state, inputs):
     feat = extract_features(img, fe, eng.geom)
     rays = torch.nn.functional.normalize(torch.randn(kf.uv.shape[0], 3, device=DEV), dim=-1)
     H, M = eng.cfg.backend.ransac_hyps, kf.uv.shape[0]
-    noise = gumbel_noise(prng.key_tensor(frame_key(0, 0), DEV), H, M)
+    logits = torch.log(kf.mask.float() + 1e-9)
     key = FrameKey(prng.key_tensor(prng.prng_key(0), DEV),
                    torch.zeros((), dtype=torch.int32, device=DEV))
     R = torch.eye(3, device=DEV)
@@ -1416,10 +1504,10 @@ def stage_times(name, eng, state, inputs):
             lambda: extract_features(img, fe, eng.geom),
         "match_descriptors (ungated)": lambda: match_descriptors(
             kf.desc, kf.mask, feat.desc, feat.mask),
-        f"draws (threefry_gumbel, main and rescue, 4 x {H} x {M})": lambda: draw_fields(
-            key, MAIN_PATHS + RESCUE_PATHS, (H, M)),
-        "ransac_translation (512 x 768)": lambda: ransac_translation(
-            rays, rays.roll(1, 0), R, kf.mask, uv_i=kf.uv, dispersion_pow=1.25, noise=noise),
+        f"draw (threefry_categorical, main, 2 x {H} of {M})": lambda: draw_categorical(
+            key, MAIN_PATHS, logits, (H,)),
+        f"ransac_translation ({H} x {M}, its draw included)": lambda: ransac_translation(
+            rays, rays.roll(1, 0), R, kf.mask, key, uv_i=kf.uv, dispersion_pow=1.25),
     }
     en, c = eng.cfg.engine, eng.calib
     if not inputs.use_gt_scale:
@@ -1530,7 +1618,7 @@ def path_phase(name, seq):
     if N > N_SHORT:
         # More timed runs: the spread of frames/s on this host (the step is
         # bound by the host's dispatch of small launches).
-        for _ in range(2):
+        for _ in range(path.runs - 1):
             t0 = time.perf_counter()
             run_sequence_scan(eng, state0, inputs)
             torch.cuda.synchronize()
@@ -1658,7 +1746,7 @@ def batch_path_phase(name, seqs):
     launches = read_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     fps = [B * N / elapsed]
-    for _ in range(2):
+    for _ in range(bp.runs - 1):
         t0 = time.perf_counter()
         run_batch_scan(eng, state0, inputs, kf0)
         torch.cuda.synchronize()
@@ -1715,12 +1803,12 @@ def batch_path_phase(name, seqs):
 
 
 def trace_batch_path(name, eng, state0, inputs, kf0):
-    """The trace of a batched path's first steps, then of one step's RANSAC
-    draws alone (every sequence's keys in one launch, as the vmapped step
-    makes it; its launch is part of the step's)."""
+    """The trace of a batched path's first steps, then of one step's main
+    RANSAC draw alone (every sequence's key and logits in one launch, as
+    the vmapped step makes it; its launch is one of the step's)."""
     from vislam_tpu_torch.engine import batch_keys, run_batch_scan
-    from vislam_tpu_torch.engine.engine import MAIN_PATHS, RESCUE_PATHS
-    from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+    from vislam_tpu_torch.engine.engine import MAIN_PATHS
+    from vislam_tpu_torch.ops.threefry_kernel import threefry_categorical
     from vislam_tpu_torch.utils import prng
 
     n = BATCH_PATHS[name].trace_steps
@@ -1728,10 +1816,10 @@ def trace_batch_path(name, eng, state0, inputs, kf0):
     _trace(name, n, lambda: run_batch_scan(eng, state0, sub, kf0), "batched step")
     B = inputs.images.shape[0]
     keys = prng.key_tensor(batch_keys(0, B), DEV)
-    index = torch.zeros(B, dtype=torch.int32, device=DEV)
-    size = (eng.cfg.backend.ransac_hyps, state0.kf_feat.uv.shape[-2])
-    _trace(f"{name} draws", 1, lambda: threefry_gumbel(keys, index, MAIN_PATHS + RESCUE_PATHS,
-                                                        size), "batched step")
+    index = torch.zeros(1, dtype=torch.int32, device=DEV)
+    logits = torch.log(state0.kf_feat.mask.float() + 1e-9)
+    _trace(f"{name} draw", 1, lambda: threefry_categorical(
+        keys, index, MAIN_PATHS, logits, (eng.cfg.backend.ransac_hyps,)), "batched step")
 
 
 def refine_check(eng, state) -> None:
@@ -1943,8 +2031,7 @@ def _kitti_card_vs_cpu(path, xml):
                                key_on("cpu", n))
             s_c = solves[-1][2]
             s_x = ransac_essential(*[x.cpu() for x in args],
-                                   **{k: v.cpu() if torch.is_tensor(v) else v
-                                      for k, v in kw.items()})
+                                   **{k: _to_device(v, "cpu") for k, v in kw.items()})
             err = (_rotation_angle(s_g.R_ji, s_x.R_ji),
                    float((s_g.t_dir.cpu() - s_x.t_dir).abs().max()))
             solve_err = [max(a, b) for a, b in zip(solve_err, err)]
@@ -2488,7 +2575,7 @@ EVAL3 = {"3 plain": 0.1076, "3 +photometric": 0.1040, "3b marg gauge": 0.1515}
 VARIANT_PATHS = {
     "oriented": VariantPath(_VARIANT_STEP, 60, frontend=dict(oriented=True), ref_ate=0.3092),
     "gated": VariantPath({"shi_tomasi": 2, "match_top2": 1, "match_top2_per_pair": 1,
-                          "match_top2_gated": 1, **DRAW}, 60,
+                          "match_top2_gated": 1, **DRAW_ONE}, 60,
                          frontend=dict(guided_gate_px=30.0),
                          ref_ate=0.2438),
     # The refine amplifies round-off (the reference against itself moves
@@ -2512,8 +2599,8 @@ VARIANT_PATHS = {
 }
 BATCH_VISION = (4, 20)      # sequences (seeds 0 to 3), frames
 BATCH_VISION_REF_ATE = (0.9977, 1.1544, 1.0870, 0.8511)
-# Per batched step: one level, the main match, no rescue.
-BATCH_VISION_STEP = {"shi_tomasi": 1, "match_top2": 1, "match_top2_per_pair": 1, **DRAW}
+# Per batched step: one level, the main match, the essential draw, no rescue.
+BATCH_VISION_STEP = {"shi_tomasi": 1, "match_top2": 1, "match_top2_per_pair": 1, **DRAW_ONE}
 
 
 def _variant_config(vp):
@@ -2654,6 +2741,11 @@ def variant_path(name, seqs) -> tuple:
     return eng, state0, inputs
 
 
+def _batch_vision_variant():
+    return VariantPath({}, BATCH_VISION[1], frontend=dict(levels_used=1),
+                       engine=dict(vision_rotation=True))
+
+
 def batch_vision_path(seqs) -> tuple:
     """run_batch_scan with vision-only rotation (the KITTI mode: one level,
     the essential solve), B sequences (seeds 0 to B - 1) x N frames; each
@@ -2666,7 +2758,7 @@ def batch_vision_path(seqs) -> tuple:
 
     B, N = BATCH_VISION
     seqs = seqs[:B]
-    vp = VariantPath({}, N, frontend=dict(levels_used=1), engine=dict(vision_rotation=True))
+    vp = _batch_vision_variant()
     eng = VIOEngine(seqs[0]["calib"], _variant_config(vp), device=DEV)
 
     def init(s):
@@ -2726,12 +2818,12 @@ def batch_vision_path(seqs) -> tuple:
           f"solve), frames on the other solve {other} of {B * N}", flush=True)
     if not kf_equal or not dp <= 1e-3 or other > 2:
         _fail("variant batch_vision: a batch entry disagrees with its unbatched run")
-    return eng, state0, inputs, kf0
+    return (eng, state0, inputs, kf0), launches
 
 
-def variants_phase(seq, seqs) -> dict:
+def variants_phase(seq, seqs):
     """Phase variants: each step option on the card (see the docstring);
-    returns what phase 7 traces."""
+    returns what phase 7 traces and batch_vision's launches."""
     from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
 
     by_name = {"seq0": seq, "seq3": make_synthetic_sequence(SyntheticConfig(
@@ -2743,9 +2835,9 @@ def variants_phase(seq, seqs) -> dict:
         out[name] = variant_path(name, by_name)
         _phase(f"variants {name}", t0)
     t0 = time.perf_counter()
-    out["batch_vision"] = batch_vision_path(seqs)
+    out["batch_vision"], launches = batch_vision_path(seqs)
     _phase("variants batch_vision", t0)
-    return out
+    return out, launches
 
 
 # The SLAM-mode variant paths are not traced: one frame's trace of the
@@ -3309,7 +3401,7 @@ def main() -> None:
     rows = kernel_phase(seq, seqs, SystemConfig())
     _phase("kernels", t0)
     t0 = time.perf_counter()
-    rows += random_phase(SystemConfig())
+    rows += random_phase(seq, seqs, SystemConfig())
     _phase("random", t0)
     # Each row's launches come from the run of the path that uses it (the
     # D = 128 match from the default path, D = 256 from the akaze path).
@@ -3323,8 +3415,10 @@ def main() -> None:
                 "response_nms:_gradmag2:batch_kaze": "batch_kaze",
                 "response_nms:hessian:batch_kaze": "batch_kaze",
                 "response_nms:fast:batch_akaze": "batch_akaze",
-                "match_top2:d256:batch_akaze": "batch_akaze", "threefry_gumbel": "default",
-                "threefry_gumbel:batch8": "batch8"}
+                "match_top2:d256:batch_akaze": "batch_akaze",
+                "threefry_categorical": "default",
+                "threefry_categorical:essential": "batch_vision",
+                "threefry_categorical:batch8": "batch8"}
     launches, profiled = {}, {}
     for name in PATHS:
         t0 = time.perf_counter()
@@ -3347,7 +3441,7 @@ def main() -> None:
     map_phase()
     _phase("map", t0)
     t0 = time.perf_counter()
-    variants = variants_phase(seq, seqs)
+    variants, launches["batch_vision"] = variants_phase(seq, seqs)
     _phase("variants", t0)
     t0 = time.perf_counter()
     parallel_phase()
@@ -3369,6 +3463,8 @@ def main() -> None:
         trace_path(name, *ctx)
         _phase(f"trace {name}", t0)
     for name, ctx in batched.items():
+        if not BATCH_PATHS[name].trace_steps:
+            continue
         t0 = time.perf_counter()
         trace_batch_path(name, *ctx)
         _phase(f"trace {name}", t0)

@@ -10,7 +10,8 @@ GT scale, every run stepped in lockstep, for each RANSAC seed:
 1. The draws. Every run draws frame n's RANSAC hypotheses under the
    reference's key fold_in(PRNGKey(seed), n) (`engine.frame_key`), on the
    card by the draw kernel and on the CPU by its twin: the line says
-   whether frame 1's draws of the two devices are equal bit for bit.
+   whether frame 1's draws of the two devices (the categorical kernel's
+   and its twin's indices, under uniform logits) are equal.
 2. Card against CPU, the plain step. Per frame: the keypoints each device
    detects on the frame's image (`extract_features`; the count, and how
    many keypoints of either set have none of the other within 0.01 px),
@@ -147,7 +148,8 @@ def compare(seq, device, seed, n, log) -> dict:
     import torch
 
     from vislam_tpu_torch.engine import VIOEngine
-    from vislam_tpu_torch.engine.engine import MAIN_PATHS, RESCUE_PATHS, FrameKey, draw_fields
+    from vislam_tpu_torch.engine.engine import MAIN_PATHS, RESCUE_PATHS, FrameKey
+    from vislam_tpu_torch.ops.threefry_kernel import draw_categorical
     from vislam_tpu_torch.engine.state import tree_to
     from vislam_tpu_torch.eval import ate_rmse
     from vislam_tpu_torch.utils import prng
@@ -155,11 +157,12 @@ def compare(seq, device, seed, n, log) -> dict:
 
     cfg = _with()
     H, M = cfg.backend.ransac_hyps, cfg.frontend.max_keypoints
-    first = [draw_fields(FrameKey(prng.key_tensor(prng.prng_key(seed), d),
-                                  torch.zeros((), dtype=torch.int32, device=d)),
-                         MAIN_PATHS + RESCUE_PATHS, (H, M)).cpu() for d in (device, "cpu")]
-    log(f"seed {seed}: frame 1's draws on {device.type} and on the CPU equal bit for bit: "
-        f"{torch.equal(*first)}; first values {[round(float(x), 6) for x in first[0][0, 0, :4]]}")
+    first = [draw_categorical(FrameKey(prng.key_tensor(prng.prng_key(seed), d),
+                                       torch.zeros((), dtype=torch.int32, device=d)),
+                              MAIN_PATHS + RESCUE_PATHS, torch.zeros(M, device=d), (H,)).cpu()
+             for d in (device, "cpu")]
+    log(f"seed {seed}: frame 1's draws (uniform logits) on {device.type} and on the CPU equal "
+        f"index for index: {torch.equal(*first)}; first indices {first[0][0, :4].tolist()}")
 
     runs = {
         "card_plain": Run("card plain", seq, cfg, device, seed, False),

@@ -1,6 +1,7 @@
-"""Time this tree's response + NMS and FED kernels against another tree's on
-one NVIDIA card, each through its own package's public functions; or, with
---paths, the default and slam paths' frames/s and launches per frame.
+"""Time this tree's response + NMS and FED kernels and RANSAC draws against
+another tree's on one NVIDIA card, each through its own package's public
+functions; or, with --paths, the default and slam paths' frames/s and
+launches per frame.
 
     python3 scripts/torch_kernels_ab.py --other DIR
     python3 scripts/torch_kernels_ab.py --other DIR --paths [--frames 60] [--slam-frames 20]
@@ -17,7 +18,17 @@ Kernels (the default): each tree's `response_nms(img, detector)` and
 (chip_smoke.py's tolerances), then timed as the replay of a CUDA graph that
 captured 100 calls (the device's time per call) on the images
 chip_smoke.py uses: each response family on its two levels (`_gradmag2` on
-the frame) and FED's 4- and 8-step cycles at 480x752.
+the frame) and FED's 4- and 8-step cycles at 480x752. Then the RANSAC
+draws as each tree's step makes them, from its frame key (seed 0, frame
+3) and logits log(w + 1e-9) of a mask with ~40% valid matches: one frame's
+main and rescue draws (2 x 2 x 512 indices over M = 768), the vision-only
+essential draw (512 x 8) and the batched step's for 8 keys with 8 logits
+rows (under torch.func.vmap). A tree with the categorical draw op
+(`ops/threefry_kernel.py::draw_categorical`) launches it once per solve; an
+older tree writes the Gumbel fields (`engine.draw_fields`, one launch) and
+takes each solve's argmax(logits + field). Each call is held against the
+tree's CPU twin (index for index); the summary also holds the indices of
+the two trees equal.
 
 Paths (--paths): chip_smoke.py's default path (`SystemConfig()`, GT scale)
 and slam path (`vi_factors` and `refine_in_step`, GT-free) run
@@ -25,7 +36,8 @@ and slam path (`vi_factors` and `refine_in_step`, GT-free) run
 true initial state, at seed 0: frames/s as the median of 3 timed runs after
 a warm-up, then the device launches (kernels, copies, memsets) per frame
 from torch.profiler over 2 frames (1 on the slam path), and among them the
-draw kernel's (`threefry_gumbel_kernel`, where the tree has it).
+draw kernels' (`threefry_gumbel_kernel` or `threefry_categorical_kernel`,
+whichever the tree has).
 
 Prints the card, one line per kernel and shape (per path and turn), and a
 JSON summary last. Imports nothing of JAX.
@@ -122,7 +134,75 @@ def time_tree(tree: str) -> dict:
             _fail(f"{tree}: {label} disagrees with its twin: max abs err {err}")
         out[label] = graph_us(lambda L=L, taus=taus: fed_evolve(L, k, taus))
         L = got.contiguous()
+    out.update(time_draws())
     return out
+
+
+def _draw_calls(dev: str):
+    """label -> a call that makes the tree's RANSAC draws on `dev` (see
+    the module docstring), the indices as one int64 tensor."""
+    import torch
+
+    from vislam_tpu_torch.engine import batch_keys
+    from vislam_tpu_torch.engine.engine import (ESSENTIAL_PATHS, MAIN_PATHS, RESCUE_PATHS,
+                                                FrameKey, draw_fields)
+    from vislam_tpu_torch.utils import prng
+    try:
+        from vislam_tpu_torch.ops.threefry_kernel import draw_categorical
+    except ImportError:
+        draw_categorical = None
+
+    H, M, B = 512, 768, 8
+    g = torch.Generator().manual_seed(0)
+    logits = torch.log((torch.rand(B + 1, M, generator=g) < 0.4).float() + 1e-9).to(dev)
+    base = prng.key_tensor(prng.prng_key(0), dev)
+    index = torch.tensor(3, dtype=torch.int32, device=dev)
+    keys8 = prng.key_tensor(batch_keys(0, B), dev)
+
+    def frame(base, lg, lg_rescue):
+        key = FrameKey(base, index)
+        if draw_categorical is not None:
+            return torch.cat([draw_categorical(key, MAIN_PATHS, lg, (H,)),
+                              draw_categorical(key, RESCUE_PATHS, lg_rescue, (H,))])
+        f = draw_fields(key, MAIN_PATHS + RESCUE_PATHS, (H, M))
+        return torch.stack([torch.argmax((lg if k < 2 else lg_rescue) + f[k], dim=-1)
+                            for k in range(4)])
+
+    def essential():
+        key = FrameKey(base, index)
+        if draw_categorical is not None:
+            return draw_categorical(key, ESSENTIAL_PATHS, logits[0], (H, 8))
+        return torch.argmax(logits[0] + draw_fields(key, ESSENTIAL_PATHS, (H, 8, M)), dim=-1)
+
+    return {
+        f"draws frame (main + rescue, 2 x 2 x {H} of {M})":
+            lambda: frame(base, logits[0], logits[1]),
+        f"draws essential ({H} x 8 of {M})": essential,
+        f"draws batch{B} (vmap, {B} keys and logits rows)":
+            lambda: torch.func.vmap(frame, in_dims=(0, 0, None))(keys8, logits[:B], logits[B]),
+    }
+
+
+def time_draws() -> dict:
+    """Each draw call held against the tree's CPU twin index for index, then
+    graph-replayed; also each call's indices (to hold the trees equal)."""
+    import hashlib
+
+    out = {}
+    cpu = _draw_calls("cpu")
+    for label, fn in _draw_calls(DEV).items():
+        got = fn()
+        if not torch_equal(got.cpu(), cpu[label]()):
+            _fail(f"{label}: the card's indices differ from the CPU twin's")
+        out[label] = graph_us(fn)
+        out[f"{label} indices"] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
 
 
 def run_paths(tree: str, frames: int, slam_frames: int) -> dict:
@@ -175,7 +255,8 @@ def run_paths(tree: str, frames: int, slam_frames: int) -> dict:
             run_sequence_scan(eng, state0, first(traced))
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        draws = sum(1 for e in events if "threefry_gumbel_kernel" in e.name)
+        draws = sum(1 for e in events if "threefry_gumbel_kernel" in e.name
+                    or "threefry_categorical_kernel" in e.name)
         out[name] = dict(frames=n, fps=sorted(fps)[1], fps_runs=fps,
                          launches_per_frame=len(events) / traced,
                          draw_kernel_per_frame=draws / traced)
@@ -185,7 +266,13 @@ def run_paths(tree: str, frames: int, slam_frames: int) -> dict:
 def summarize_kernels(card: str, trees: dict, runs: list) -> dict:
     """Each kernel call's graph time per tree, the mean of its two turns."""
     summary = {"card": card, "other": trees["other"], "us": {}}
-    for label in runs[0]:
+    for label in [k for k in runs[0] if k.endswith(" indices")]:
+        same = len({r.get(label) for r in runs}) == 1
+        summary[label] = same
+        print(f"ab {label} equal in both trees: {same}", flush=True)
+        if not same:
+            _fail(f"{label} differ between the trees")
+    for label in [k for k in runs[0] if not k.endswith(" indices")]:
         turns = [r[label] for r in runs]
         o, t = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         summary["us"][label] = dict(other=o, this=t, ratio=t / o, turns=turns)

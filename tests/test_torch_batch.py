@@ -207,9 +207,9 @@ def test_batch_kaze_tracks_like_reference_run_batch_scan():
 def _count_plain_calls(monkeypatch):
     """Count the kernels' plain versions as the custom ops call them on the
     CPU (one call per op call: a folded batch counts once)."""
-    counts = {"response_nms": 0, "match_top2": 0, "fed_evolve": 0, "threefry_gumbel": 0}
+    counts = {"response_nms": 0, "match_top2": 0, "fed_evolve": 0, "threefry_categorical": 0}
     for mod, name in ((harris_kernel, "response_nms"), (match_kernel, "match_top2"),
-                      (fed_kernel, "fed_evolve"), (threefry_kernel, "threefry_gumbel")):
+                      (fed_kernel, "fed_evolve"), (threefry_kernel, "threefry_categorical")):
         plain = getattr(mod, name + "_plain")
 
         def counted(*a, _plain=plain, _name=name, **k):
@@ -223,13 +223,14 @@ def _count_plain_calls(monkeypatch):
 MODES = {
     # frontend and backend overrides, GT scale, frames, op calls per batched step
     "default": (dict(), dict(), True, 8, {"response_nms": 2, "match_top2": 2, "fed_evolve": 0,
-                                          "threefry_gumbel": 1}),
+                                          "threefry_categorical": 2}),
     "kaze": (dict(scale_space="nonlinear", detector="hessian"), dict(), True, 4,
-             {"response_nms": 3, "match_top2": 2, "fed_evolve": 2, "threefry_gumbel": 1}),
+             {"response_nms": 3, "match_top2": 2, "fed_evolve": 2, "threefry_categorical": 2}),
     "akaze": (dict(scale_space="nonlinear", detector="fast", descriptor="brief"), dict(), True,
-              4, {"response_nms": 3, "match_top2": 2, "fed_evolve": 2, "threefry_gumbel": 1}),
+              4, {"response_nms": 3, "match_top2": 2, "fed_evolve": 2,
+                  "threefry_categorical": 2}),
     "slam": (dict(), dict(vi_factors=True, refine_in_step=True), False, 4,
-             {"response_nms": 2, "match_top2": 3, "fed_evolve": 0, "threefry_gumbel": 1}),
+             {"response_nms": 2, "match_top2": 3, "fed_evolve": 0, "threefry_categorical": 2}),
 }
 
 
@@ -251,8 +252,9 @@ def test_batch_entries_equal_unbatched_runs(monkeypatch, mode):
     match at a_group 1). Each batched step calls each kernel's op once for
     the whole batch: one response call per level (KAZE, AKAZE: and the
     contrast statistic), one FED call per cycle, 2 matches (main and gated
-    rescue), and in SLAM mode the window match as a third; and one draw
-    (every entry's main and rescue Gumbel fields)."""
+    rescue), and in SLAM mode the window match as a third; and two draws
+    (every entry's main draw, then its rescue's: the categorical op, no
+    Gumbel field)."""
     frontend, backend, gt_scale, n, per_step = MODES[mode]
     seqs = _seqs(n + 1)
     base = _configure(tconfig.SystemConfig(), f32=False, **backend)

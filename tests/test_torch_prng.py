@@ -1,15 +1,19 @@
 """The port's copy of the reference's random stream (`utils/prng.py`) and its
-draw op (`ops/threefry_kernel.py`, the plain twin on the CPU) against JAX's
-own: keys bitwise, bits bitwise, Gumbel noise within one ulp of each log,
-categorical draws index for index at the RANSAC's shapes, and the engine's
-keys (frame, sequence, a batch's slice) as the reference derives them.
+draw ops (`ops/threefry_kernel.py`, the plain twins on the CPU) against
+JAX's own: keys bitwise, bits bitwise, Gumbel noise within one ulp of each
+log, categorical draws index for index at the RANSAC's shapes (the
+categorical op too), and the engine's keys (frame, sequence, a batch's
+slice) as the reference derives them; the port's float32 log against its
+earlier float64 series and the card kernel's copy of its table.
 
 The reference runs JAX's default threefry (`jax_threefry_partitionable`
 True in jax 0.9, impl threefry2x32): a test asserts both in the reference's
 process, so a change of JAX's default fails here instead of drifting.
 """
 
+import math
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +29,8 @@ from vislam_tpu_torch.engine import batch_keys, frame_key, sequence_key
 from vislam_tpu_torch.frontend.features import extract_features
 from vislam_tpu_torch.frontend.match import match_descriptors
 from vislam_tpu_torch.ops import threefry_kernel
-from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+from vislam_tpu_torch.ops.threefry_kernel import (FrameKey, draw_categorical,
+                                                  threefry_categorical, threefry_gumbel)
 from vislam_tpu_torch.utils import prng
 from vislam_tpu_torch.utils.config import FrontendConfig
 
@@ -133,6 +138,75 @@ def test_gumbel_within_one_ulp_of_jax():
     assert np.abs(g - jg).max() <= 1e-6
 
 
+def _series_log_f32(x):
+    """The port's float32 log before the table's (kept here as the
+    oracle): log(x) = e ln2 + 2 atanh(s), s = (m - 1) / (m + 1), m in
+    [sqrt(1/2), sqrt(2)), 9 terms of the series in float64, rounded to
+    float32."""
+    m, e = torch.frexp(x.double())
+    low = m < math.sqrt(0.5)
+    m.mul_(low + 1.0)
+    e = e - low.to(e.dtype)
+    s = (m - 1.0).div_(m.add_(1.0))
+    s2 = s * s
+    terms = [1.0 / (2 * k + 1) for k in range(9)]
+    p = torch.full_like(s, terms[-1])
+    for c in terms[-2::-1]:
+        p.mul_(s2).add_(c)
+    return e.double().mul_(math.log(2.0)).add_(s.mul_(2.0).mul_(p)).float()
+
+
+def test_log_f32_equals_the_series_and_rounds_correctly():
+    """The table log (no division) against the float64 series it replaced,
+    on 10^6 float32 values spanning [2^-126, 1) (the uniforms) and (0, 88]
+    (the inner logs, log-spaced down to the smallest subnormal) plus the
+    edges and 20000 values on each side of 1 and of 2: the same float32
+    everywhere, both the float32 rounding of numpy's float64 log (so
+    within half an ulp of the exact log). numpy's own float32 log is no
+    oracle: its vector kernel is up to 4 ulp off on AVX-512 hosts."""
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    edges = np.array([2.0 ** -126, 1 - 2.0 ** -24, 1 - 2.0 ** -23, 1, 1 + 2.0 ** -23, 88,
+                      np.finfo(f32).smallest_subnormal, 87.336544, 2, 0.5, math.sqrt(0.5),
+                      math.sqrt(2), np.finfo(f32).max], f32)
+    steps = np.arange(1, 20001, dtype=f32)
+    x = np.concatenate([
+        np.maximum(rng.uniform(0, 1, 500_000).astype(f32), f32(2.0 ** -126)),
+        np.exp(rng.uniform(np.log(1.4e-45), np.log(88.0), 500_000)).astype(f32),
+        edges, f32(1) - steps * f32(2.0 ** -24), f32(1) + steps * f32(2.0 ** -23),
+        f32(2) - steps * f32(2.0 ** -23), f32(2) + steps * f32(2.0 ** -22)])
+    x = x[x > 0]
+    t = torch.from_numpy(x)
+    new, old = prng.log_f32(t), _series_log_f32(t)
+    exact = np.log(x.astype(np.float64)).astype(f32)
+    assert int((new != old).sum()) == 0
+    np.testing.assert_array_equal(new.numpy(), exact)
+    np.testing.assert_array_equal(old.numpy(), exact)
+
+
+def test_kernel_log_table_is_the_twins():
+    """The card kernel's log (`ops/csrc/threefry_gumbel.cu`) holds the
+    twin's table of 1/c_j and log(c_j) and its log1p coefficients, in
+    order, to the bit."""
+    src = (pathlib.Path(threefry_kernel.__file__).parent / "csrc" /
+           "threefry_gumbel.cu").read_text()
+    hexfloat = r"-?0x[0-9a-f.]+p[-+]\d+"
+    table = re.search(r"kLogCentre\[kLogTable \+ 1\] = \{(.*?)\n\};", src, re.S).group(1)
+    pairs = [float.fromhex(v) for v in re.findall(hexfloat, table)]
+    assert pairs[1::2] == list(prng.LOG_CENTRES) and len(pairs) == 2 * (prng.LOG_TABLE_SIZE + 1)
+    assert pairs[0::2] == list(prng.INV_CENTRES)
+    body = re.search(r"void log_f32_n\(const float \(&x\)\[N\].*?\{(.*?)\n\}", src,
+                     re.S).group(1)
+    series = "".join(line for line in body.splitlines() if "q[k] = " in line)
+    coefs = [float.fromhex(v) for v in re.findall(hexfloat, series)]
+    assert coefs == list(prng.LOG1P_TERMS)
+    ln2 = re.search(r"kLn2 = (0x[0-9a-f.]+p[-+]\d+);", src).group(1)
+    assert float.fromhex(ln2) == prng.LN2
+    assert prng.LOG_CENTRES[0] == 0.0 and prng.LOG_CENTRES[256] == prng.LN2
+    for j in (1, 100, 255):
+        assert abs(prng.LOG_CENTRES[j] - math.log1p(j / 256)) <= 2 ** -52 * math.log1p(j / 256)
+
+
 @pytest.fixture(scope="module")
 def match_logits():
     """log(w + 1e-9) of a real match mask: the port's default frontend on
@@ -151,13 +225,20 @@ def match_logits():
 @pytest.mark.parametrize("shape", [(H,), (H, 8)], ids=["translation", "essential"])
 def test_categorical_equals_jax(match_logits, shape):
     """jax.random.categorical's indices at the RANSAC's shapes; an index may
-    differ only where JAX's two best scores are within 2 ulp."""
+    differ only where JAX's two best scores are within 2 ulp. The
+    categorical op (the twin of the draw kernel, folding the key itself)
+    gives prng.categorical's indices, the step's earlier draw (the Gumbel
+    field plus the logits, then its argmax), index for index."""
     for seed, folds in ((0, (3,)), (7, (11, 7)), (2 ** 31 - 1, (0,))):
         key = prng.prng_key(seed)
         for d in folds:
             key = prng.fold_in(key, d)
         jk = _jkey(seed, *folds)
         idx = prng.categorical(_kt(key), match_logits, shape).numpy()
+        base = _kt(prng.prng_key(seed))
+        op = draw_categorical(FrameKey(base, None, folds[:-1]), [folds[-1:]], match_logits,
+                              shape)[0]
+        np.testing.assert_array_equal(op.numpy(), idx)
         ref = np.asarray(jax.random.categorical(jk, jnp.asarray(match_logits.numpy()),
                                                 shape=shape))
         assert idx.shape == ref.shape == shape
@@ -169,11 +250,66 @@ def test_categorical_equals_jax(match_logits, shape):
             assert (gap[differ] <= 2 * np.spacing(np.abs(scores[..., 1][differ]))).all()
 
 
-def test_draw_op_folds_and_vmap(monkeypatch):
-    """The draw op's twin: field (p, j) is jax.random.gumbel under
-    fold_in(fold_in(keys[p], index[p]), path j) (paths of any length, the
-    index optional); under torch.func.vmap one call for the whole map,
+@pytest.mark.parametrize("logits", ["batched", "shared"])
+def test_categorical_op_folds_and_vmap(monkeypatch, logits):
+    """The categorical op's twin: entry (p, j) is jax.random.categorical
+    under fold_in(fold_in(keys[p], index[p]), path j) over logits[p] (or
+    one shared row; paths of any length); under torch.func.vmap over keys,
+    with the logits mapped as well or shared, one call for the whole map,
     equal to the per-entry calls."""
+    keys = prng.split(prng.prng_key(9), 3)
+    index = torch.tensor([4, 0, 2], dtype=torch.int32)
+    paths = [(0,), (1,), (7, 0), ()]
+    g = torch.Generator().manual_seed(1)
+    lg = torch.log((torch.rand(3, 40, generator=g) < 0.5).float() + 1e-9)
+    if logits == "shared":
+        lg = lg[:1]
+    out = threefry_categorical(_kt(keys), index, paths, lg, (6,))
+    assert out.shape == (3, 4, 6) and out.dtype == torch.int64
+    for p in range(3):
+        for j, path in enumerate(paths):
+            jk = jax.random.fold_in(jax.random.split(jax.random.PRNGKey(9), 3)[p],
+                                    int(index[p]))
+            for d in path:
+                jk = jax.random.fold_in(jk, d)
+            ref = jax.random.categorical(jk, jnp.asarray(lg[p % lg.shape[0]].numpy()),
+                                         shape=(6,))
+            np.testing.assert_array_equal(out[p, j].numpy(), np.asarray(ref))
+
+    calls = [0]
+    plain = threefry_kernel.threefry_categorical_plain
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return plain(*a, **k)
+
+    monkeypatch.setattr(threefry_kernel, "threefry_categorical_plain", counted)
+    torch._C._functorch._set_vmap_fallback_enabled(False)
+    try:
+        if logits == "shared":
+            mapped = torch.func.vmap(lambda k: draw_categorical(
+                FrameKey(k, index[0], (7,)), [(0,), (1,)], lg[0], (6,)))(_kt(keys))
+        else:
+            mapped = torch.func.vmap(lambda k, row: draw_categorical(
+                FrameKey(k, index[0], (7,)), [(0,), (1,)], row, (6,)))(_kt(keys), lg)
+    finally:
+        torch._C._functorch._set_vmap_fallback_enabled(True)
+    assert calls[0] == 1 and mapped.shape == (3, 2, 6)
+    one = [draw_categorical(FrameKey(_kt(keys[b]), index[0], (7,)), [(0,), (1,)],
+                            lg[b % lg.shape[0]], (6,)) for b in range(3)]
+    torch.testing.assert_close(mapped, torch.stack(one), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        threefry_categorical(_kt(keys), index, [(-1,)], lg, (6,))
+    with pytest.raises(ValueError):
+        threefry_categorical(_kt(keys), index[:2], paths, lg, (6,))
+
+
+def test_draw_op_folds_and_vmap():
+    """The field function (plain PyTorch, the noise fed to a step): field
+    (p, j) is jax.random.gumbel under fold_in(fold_in(keys[p], index[p]),
+    path j) (paths of any length, the index optional); under
+    torch.func.vmap with the per-example fallback off, equal to the
+    per-entry calls."""
     keys = prng.split(prng.prng_key(9), 2)
     index = torch.tensor([4, 0], dtype=torch.int32)
     paths = [(0,), (1,), (7, 0), (7, 1), ()]
@@ -190,14 +326,6 @@ def test_draw_op_folds_and_vmap(monkeypatch):
     no_index = threefry_gumbel(_kt(keys), None, [()], (3, 5))
     torch.testing.assert_close(no_index[:, 0], prng.gumbel(_kt(keys), (3, 5)), rtol=0, atol=0)
 
-    calls = [0]
-    plain = threefry_kernel.threefry_gumbel_plain
-
-    def counted(*a, **k):
-        calls[0] += 1
-        return plain(*a, **k)
-
-    monkeypatch.setattr(threefry_kernel, "threefry_gumbel_plain", counted)
     torch._C._functorch._set_vmap_fallback_enabled(False)
     try:
         mapped = torch.func.vmap(
@@ -205,7 +333,6 @@ def test_draw_op_folds_and_vmap(monkeypatch):
             in_dims=(0, None))(_kt(keys), index[0])
     finally:
         torch._C._functorch._set_vmap_fallback_enabled(True)
-    assert calls[0] == 1
     one = [threefry_gumbel(_kt(keys[b:b + 1]), index[:1], paths[:4], (3, 5))[0]
            for b in range(2)]
     torch.testing.assert_close(mapped, torch.stack(one), rtol=0, atol=0)

@@ -47,6 +47,7 @@ from vislam_tpu_torch.frontend.features import Features, extract_features
 from vislam_tpu_torch.frontend.match import match_descriptors
 from vislam_tpu_torch.frontend.pyramid import build_pyramid
 from vislam_tpu_torch.frontend.pose import (
+    SPLIT_PATHS,
     ransac_translation,
     resolve_direction_sign,
     rotation_compensated_disparity,
@@ -58,7 +59,7 @@ from vislam_tpu_torch.inertial.preintegration import (
     compose,
     preintegrate,
 )
-from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+from vislam_tpu_torch.ops.threefry_kernel import FrameKey, threefry_gumbel
 from vislam_tpu_torch.utils import prng
 from vislam_tpu_torch.utils.config import SystemConfig
 
@@ -141,31 +142,28 @@ def nanmedian(x):
     return s.index_select(0, low)[0] * lw + s.index_select(0, high)[0] * hw
 
 
-class FrameKey(NamedTuple):
-    """A frame's RANSAC key on the device: the reference's fold_in(base,
-    index), folded in by the draw kernel (`ops/threefry_kernel.py`) so that
-    neither half is drawn or computed on the host per frame."""
-
-    base: torch.Tensor    # (2,) int32, the uint32 key's bits
-    index: torch.Tensor   # () int32
-
-
 def frame_key(seed: int, idx: int) -> np.ndarray:
     """The host key of frame `idx` of a run with `seed`: the reference's
     fold_in(PRNGKey(seed), idx), (2,) uint32."""
     return prng.fold_in(prng.prng_key(seed), idx)
 
 
-# The Gumbel fields of a frame's draws, as folds of its key: the
-# translation RANSAC's split(key) -> (ka, kb); the rescue's
-# split(fold_in(key, 7)); the essential RANSAC's key itself.
-MAIN_PATHS = ((0,), (1,))
-RESCUE_PATHS = ((7, 0), (7, 1))
+# A frame's draws, as folds of its key (a FrameKey: the base key and the
+# frame index, folded on the device): the translation RANSAC's split(key)
+# -> (ka, kb); the rescue's split(fold_in(key, 7)); the essential RANSAC's
+# key itself. The step draws each solve's indices in one launch of the
+# categorical draw kernel (`ransac_translation` / `ransac_essential` with
+# the key); these paths give the Gumbel fields of the same draws
+# (`draw_fields`), for noise fed to a step.
+RESCUE_FOLD = 7
+MAIN_PATHS = SPLIT_PATHS
+RESCUE_PATHS = tuple((RESCUE_FOLD,) + p for p in SPLIT_PATHS)
 ESSENTIAL_PATHS = ((),)
 
 
 def draw_fields(key: FrameKey, paths, size) -> torch.Tensor:
-    """(J, *size) Gumbel fields of a frame key's J paths: one launch."""
+    """(J, *size) Gumbel fields of a frame key's J paths (plain PyTorch on
+    the key's device)."""
     return threefry_gumbel(key.base.reshape(1, 2), key.index.reshape(1), paths, size)[0]
 
 
@@ -332,9 +330,11 @@ class VIOEngine:
 
         The RANSAC draws come from `noise` / `noise_rescue`, or where one is
         not given from `key` (the reference's keys: main split(key), rescue
-        split(fold_in(key, 7)), essential key), all of a frame's draws in
-        one launch. Under `torch.func.vmap` (`run_batch_scan`) the key's
-        base is mapped and the launch serves the whole batch."""
+        split(fold_in(key, 7)), essential key): each solve draws its
+        hypotheses' indices in one launch once its logits exist (the
+        rescue's after the guided re-match). Under `torch.func.vmap`
+        (`run_batch_scan`) the key's base is mapped and each launch serves
+        the whole batch."""
         gt_free = not torch.is_tensor(gt_t_norm) and gt_t_norm < 0
         cfg = self.cfg
         fe, be, en = cfg.frontend, cfg.backend, cfg.engine
@@ -404,24 +404,16 @@ class VIOEngine:
         t_pred_dir = t_pred_cam / torch.clamp(imu_t_norm, min=1e-9)
 
         # ---------------- two-view relative pose
-        H_hyp, M = be.ransac_hyps, uv_i.shape[0]
+        H_hyp = be.ransac_hyps
         vision = en.vision_rotation
         rescue = fe.guided_fallback_px > 0 and fe.guided_gate_px == 0 and not vision
-        paths = (ESSENTIAL_PATHS if vision else MAIN_PATHS) if noise is None else ()
-        paths += RESCUE_PATHS if rescue and noise_rescue is None else ()
-        if paths:
-            if key is None:
-                raise ValueError("the step needs noise and noise_rescue, or a key")
-            fields = draw_fields(key, paths, (H_hyp, 8, M) if vision else (H_hyp, M))
-            if noise is None:
-                noise, fields = (fields[0], None) if vision else (fields[:2], fields[2:])
-            if rescue and noise_rescue is None:
-                noise_rescue = fields
+        if key is None and (noise is None or (rescue and noise_rescue is None)):
+            raise ValueError("the step needs noise and noise_rescue, or a key")
         used_fallback = torch.zeros((), dtype=torch.bool, device=self.device)
         if vision:
             # Vision-only rotation (no IMU): rotation and translation
             # direction from the essential matrix.
-            est_e = ransac_essential(rays_i, rays_j, solve_mask, num_hyps=H_hyp,
+            est_e = ransac_essential(rays_i, rays_j, solve_mask, key=key, num_hyps=H_hyp,
                                      thresh=be.ransac_thresh, uv_i=uv_i,
                                      dispersion_pow=be.ransac_dispersion_pow, noise=noise)
             R_ji = est_e.R_ji
@@ -430,7 +422,7 @@ class VIOEngine:
             est_inlier_mask = est_e.inlier_mask
         else:
             R_ji = R_ji_imu
-            est = ransac_translation(rays_i, rays_j, R_ji, solve_mask, num_hyps=H_hyp,
+            est = ransac_translation(rays_i, rays_j, R_ji, solve_mask, key=key, num_hyps=H_hyp,
                                      thresh=be.ransac_thresh, uv_i=uv_i,
                                      dispersion_pow=be.ransac_dispersion_pow, noise=noise)
             t_dir = resolve_direction_sign(rays_i, rays_j, R_ji, est.t_dir, est.inlier_mask)
@@ -458,7 +450,8 @@ class VIOEngine:
             uv_j_g = feat.uv[torch.clamp(m_g.idx_b, 0, Kb - 1).long()]
             rj_g = unit_rays(uv_j_g)
             g_solve_mask = m_g.mask & (kf.level == 0) if fine_only else m_g.mask
-            est_g = ransac_translation(rays_i, rj_g, R_ji_imu, g_solve_mask,
+            key_g = None if key is None else key._replace(path=(RESCUE_FOLD,))
+            est_g = ransac_translation(rays_i, rj_g, R_ji_imu, g_solve_mask, key=key_g,
                                        num_hyps=H_hyp, thresh=be.ransac_thresh, uv_i=uv_i,
                                        dispersion_pow=be.ransac_dispersion_pow,
                                        noise=noise_rescue)

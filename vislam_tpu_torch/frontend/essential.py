@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from vislam_tpu_torch.lie.so3 import orthonormalize
-from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+from vislam_tpu_torch.ops.threefry_kernel import FrameKey, draw_categorical, threefry_gumbel
 
 # Squarings of the shifted inverse in each of the two phases of
 # `smallest_eigvec_sym`.
@@ -43,7 +43,8 @@ class EssentialEstimate(NamedTuple):
 def gumbel_hypotheses(key: torch.Tensor, num_hyps: int, M: int):
     """(H, 8, M) Gumbel noise under `key` ((2,) int32): the 8
     correspondences of each of H hypotheses, the reference's
-    categorical(key, logits, shape=(H, 8))."""
+    categorical(key, logits, shape=(H, 8)); `ransac_essential(key=...)`
+    draws the same indices without the noise (`draw_categorical`)."""
     return threefry_gumbel(key.reshape(1, 2), None, ((),), (num_hyps, 8, M))[0, 0]
 
 
@@ -188,7 +189,7 @@ def ransac_essential(
     rays_i,
     rays_j,
     mask,
-    key: Optional[torch.Tensor] = None,
+    key: Optional[torch.Tensor | FrameKey] = None,
     num_hyps: int = 256,
     thresh: float = 0.01,
     uv_i=None,
@@ -199,19 +200,20 @@ def ransac_essential(
 
     rays_*: (M, 3) unit camera rays; mask: (M,) valid matches; the
     hypotheses come from `noise` ((H, 8, M) Gumbel) or are drawn under
-    `key` ((2,) int32, the reference's key). thresh is on the algebraic residual |x_j^T E x_i| with
+    `key` ((2,) int32, the reference's key, or a FrameKey) in one launch
+    of the draw kernel. thresh is on the algebraic residual |x_j^T E x_i| with
     ||E||_F = sqrt(2). dispersion_pow > 0 (with uv_i (M, 2)): score =
     inliers x (spatial std of the inliers)^pow.
     """
-    M = rays_i.shape[0]
     A = _epipolar_design(rays_i, rays_j)  # (M, 9)
     w = mask.float()
-    if noise is None:
-        noise = gumbel_hypotheses(key, num_hyps, M)
 
     # Hypotheses: 8 weighted-random matches each.
     logits = torch.log(w + 1e-9)
-    idx = torch.argmax(logits + noise, dim=-1)          # (H, 8)
+    if noise is None:
+        idx = draw_categorical(key, ((),), logits, (num_hyps, 8))[0]   # (H, 8)
+    else:
+        idx = torch.argmax(logits + noise, dim=-1)
     A_h = A[idx]                                          # (H, 8, 9)
     G = torch.einsum("hki,hkj->hij", A_h, A_h)
     e_h = smallest_eigvec_sym(G)                          # (H, 9)

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+from vislam_tpu_torch.ops.threefry_kernel import FrameKey, draw_categorical, threefry_gumbel
 
 
 class TranslationEstimate(NamedTuple):
@@ -50,12 +50,18 @@ def rotation_compensated_disparity(uv_i, uv_j, mask, R_ji, fx, fy, cx, cy):
     return torch.sum(d * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
+# The translation RANSAC's two draws: split(key) -> (ka, kb).
+SPLIT_PATHS = ((0,), (1,))
+
+
 def gumbel_noise(key: torch.Tensor, num_hyps: int, M: int):
     """(2, H, M) Gumbel noise of the translation RANSAC's two draws under
     `key` ((2,) int32 on the draws' device), as the reference draws them:
     ka, kb = split(key), then categorical(ka / kb, logits, shape=(H,)),
-    which is argmax(logits + gumbel(k, (H, M))) (the Gumbel-max trick)."""
-    return threefry_gumbel(key.reshape(1, 2), None, ((0,), (1,)), (num_hyps, M))[0]
+    which is argmax(logits + gumbel(k, (H, M))) (the Gumbel-max trick).
+    `ransac_translation(key=...)` draws the same indices without the
+    noise (`draw_categorical`)."""
+    return threefry_gumbel(key.reshape(1, 2), None, SPLIT_PATHS, (num_hyps, M))[0]
 
 
 def smallest_eigvec_sym3(S):
@@ -97,7 +103,7 @@ def ransac_translation(
     rays_j,
     R_ji,
     mask,
-    key: Optional[torch.Tensor] = None,
+    key: Optional[torch.Tensor | FrameKey] = None,
     num_hyps: int = 512,
     thresh: float = 0.02,
     uv_i=None,
@@ -108,21 +114,23 @@ def ransac_translation(
 
     rays_*: (M, 3); R_ji from the IMU; mask: (M,) valid matches. The
     hypotheses come from `noise` ((2, H, M) Gumbel) or are drawn under
-    `key` ((2,) int32, the reference's key: the same hypotheses).
+    `key` ((2,) int32, the reference's key: the same hypotheses; or a
+    FrameKey, folded on the device), categorical(split(key)[0 | 1],
+    logits, shape=(H,)) in one launch of the draw kernel.
 
     dispersion_pow > 0 (needs uv_i (M, 2)): score = inliers x (spatial
     std of the inlier set)^pow, which favours the spread-out static mode
     over compact clusters of independently moving points.
     """
-    M = rays_i.shape[0]
     n, n_norm = epipolar_normals(rays_i, rays_j, R_ji)
     w = mask.float() * (n_norm > 1e-5).float()
 
-    if noise is None:
-        noise = gumbel_noise(key, num_hyps, M)
     logits = torch.log(w + 1e-9)
-    idx_a = torch.argmax(logits + noise[0], dim=-1)
-    idx_b = torch.argmax(logits + noise[1], dim=-1)
+    if noise is None:
+        idx_a, idx_b = draw_categorical(key, SPLIT_PATHS, logits, (num_hyps,))
+    else:
+        idx_a = torch.argmax(logits + noise[0], dim=-1)
+        idx_b = torch.argmax(logits + noise[1], dim=-1)
     t_hyp = torch.linalg.cross(n[idx_a], n[idx_b], dim=-1)  # (H, 3)
     t_norm = torch.linalg.vector_norm(t_hyp, dim=-1, keepdim=True)
     t_hyp = t_hyp / torch.clamp(t_norm, min=1e-12)

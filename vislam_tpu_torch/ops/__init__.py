@@ -16,18 +16,18 @@ def _counters() -> dict:
     """name -> (wrapper, attribute that holds its count, key or None) of
     every kernel launch counter: one per response family, fed_evolve,
     match_top2, and of the match calls those batched (one A for several
-    sets) and gated, and threefry_gumbel."""
+    sets) and gated, and threefry_categorical."""
     from vislam_tpu_torch.ops.fed_kernel import fed_evolve
     from vislam_tpu_torch.ops.harris_kernel import FAMILIES, response_nms
     from vislam_tpu_torch.ops.match_kernel import match_top2
-    from vislam_tpu_torch.ops.threefry_kernel import threefry_gumbel
+    from vislam_tpu_torch.ops.threefry_kernel import threefry_categorical
 
     out = {fam: (response_nms, "launches", fam) for fam in FAMILIES}
     out["fed_evolve"] = (fed_evolve, "launches", None)
     out["match_top2"] = (match_top2, "launches", None)
     out["match_top2_batched"] = (match_top2, "batched_launches", None)
     out["match_top2_gated"] = (match_top2, "gated_launches", None)
-    out["threefry_gumbel"] = (threefry_gumbel, "launches", None)
+    out["threefry_categorical"] = (threefry_categorical, "launches", None)
     return out
 
 

@@ -28,6 +28,7 @@ Two halves:
 
 from __future__ import annotations
 
+import decimal
 import math
 
 import numpy as np
@@ -168,30 +169,57 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0) -> torch.Tensor:
     return torch.maximum(lo, bits_to_unit(_random_bits32(key, shape)) * span + lo)
 
 
-# log(m) = 2 atanh(s), s = (m - 1) / (m + 1), for m in [sqrt(1/2), sqrt(2)):
-# |s| <= 0.1716, and 9 terms of the series leave 8.7e-16 of it.
-SQRT_HALF = math.sqrt(0.5)
+# log(x) = e ln2 + log(c_j) + log1p(r), r = (m - c_j) / c_j: x = 2^e m, m in
+# [1, 2), c_j = 1 + j/256 the nearest of 257 centres (j = 0..256: m's top 8
+# fraction bits rounded, a carry giving c_256 = 2). m - c_j is exact, so
+# |r| <= 2^-9 costs one multiplication by the table's 1/c_j and no
+# division; 6 terms of log1p leave |r|^7/7 <= 2^-65.8. Near 1 the log keeps
+# its relative accuracy: x just above 1 has c = 1 and r = m - 1 exactly;
+# x just below has e = -1 and c = 2, and e ln2 + log 2 is exactly 0. log(c_j)
+# comes from decimal arithmetic (40 digits, rounded once to float64: the
+# same bits on any host); 1/c_j is a correctly rounded float64 division.
+# The card kernel (`ops/csrc/threefry_gumbel.cu`) holds the same table and
+# repeats the operations that round, in the same order, each rounded once.
 LN2 = math.log(2.0)
-LOG_TERMS = tuple(1.0 / (2 * k + 1) for k in range(9))
+LOG_TABLE_SIZE = 256                            # centres per binade; the table has 257
+LOG1P_TERMS = (-1.0 / 6.0, 1.0 / 5.0, -1.0 / 4.0, 1.0 / 3.0, -1.0 / 2.0)
+
+
+def _log_centres():
+    with decimal.localcontext() as ctx:
+        ctx.prec = 40
+        return tuple(float((1 + decimal.Decimal(j) / LOG_TABLE_SIZE).ln())
+                     for j in range(LOG_TABLE_SIZE + 1))
+
+
+LOG_CENTRES = _log_centres()                   # log(c_j), float64, j = 0..256
+INV_CENTRES = tuple(1.0 / (1.0 + j / LOG_TABLE_SIZE) for j in range(LOG_TABLE_SIZE + 1))
+_LOG_C = torch.tensor(LOG_CENTRES, dtype=torch.float64)
+_INV_C = torch.tensor(INV_CENTRES, dtype=torch.float64)
 
 
 def log_f32(x: torch.Tensor) -> torch.Tensor:
-    """The natural log of positive float32 x, rounded to float32 from a
-    float64 series, with the same operations in the same order on every
-    device (the card kernel repeats them). Not torch.log: on the CPU its
-    first call in a thread was seen to return blocks of 2048 values off by
-    1e-5 relative (intermittently, MKL's vector log), and the card's logf
-    and the CPU's differ in the last bit besides."""
-    m, e = torch.frexp(x.double())
-    low = m < SQRT_HALF
-    m.mul_(low + 1.0)                      # exact: m * 2 where m < sqrt(1/2)
-    e = e - low.to(e.dtype)
-    s = (m - 1.0).div_(m.add_(1.0))
-    s2 = s * s
-    p = torch.full_like(s, LOG_TERMS[-1])
-    for c in LOG_TERMS[-2::-1]:
-        p.mul_(s2).add_(c)
-    return e.double().mul_(LN2).add_(s.mul_(2.0).mul_(p)).float()
+    """The natural log of positive float32 x, rounded to float32 from
+    float64 (a table of 257 centres and a log1p series; see above), with
+    the same rounded operations in the same order on every device (the
+    card kernel repeats them). Not torch.log: on the CPU its first call in
+    a thread was seen to return blocks of 2048 values off by 1e-5 relative
+    (intermittently, MKL's vector log), and the card's logf and the CPU's
+    differ in the last bit besides."""
+    bits = x.double().view(torch.int64)
+    hi = (bits >> 32).to(torch.int32)           # sign 0, 11 exponent bits, 20 of m's
+    e = (hi >> 20) - 1023
+    m_hi = (hi & 0xFFFFF) | 0x3FF00000          # m in [1, 2)
+    c_hi = (m_hi + 0x800) & ~0xFFF              # 1 + j/256: m's top 8 fraction bits rounded
+    j = ((c_hi - 0x3FF00000) >> 12).long()
+    m = ((m_hi.to(torch.int64) << 32) | (bits & 0xFFFFFFFF)).view(torch.float64)
+    r = m.sub_((c_hi.to(torch.int64) << 32).view(torch.float64)).mul_(
+        _INV_C.to(x.device)[j])
+    q = torch.full_like(r, LOG1P_TERMS[0])
+    for coef in LOG1P_TERMS[1:]:
+        q.mul_(r).add_(coef)
+    log1p = (r * r).mul_(q).add_(r)
+    return e.double().mul_(LN2).add_(_LOG_C.to(x.device)[j]).add_(log1p).float()
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
