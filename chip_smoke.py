@@ -204,6 +204,18 @@ Phases, each fatal on failure (exit code != 0, no result line):
        b. `eval/runner.py::run_vio_sequence` over the default path's first
           20 frames at GT scale, on the card and on the CPU at one seed (the
           same draws): exact launches, poses within 1e-2 m, ATE < 0.5 m;
+     Then the last of the JAX package's public surface (phase api), each
+     check fatal: orientation_from_accel, complementary_scan and dead_reckon
+     over the default path's whole IMU stream, card against CPU (the
+     tests' float32 bounds at 200 samples, grown linearly with the
+     stream's length); on the card, the static tilt (1e-5 rad), the
+     complementary filter on tests/test_inertial.py's gentle sequence
+     (0.05 rad) and dead_reckon and predict_state over three 0.5 s
+     windows of the default path's stream against GT (0.01 m, 0.02 m/s);
+     then frames 0 and 2 of the default path: their features and match
+     (exact launches), gather_matched and epipolar_inlier_mask, card
+     against CPU; on the GT direction over half of the matches inliers,
+     and over 5x as many as on each direction perpendicular to it;
   4. stage times: for each long path (all but harris and dog), where a frame's wall time goes
      (each stage alone, synchronised; the GT-free paths add
      vi_align_window, slam refine_window);
@@ -3347,6 +3359,185 @@ def eval_phase(seq) -> None:
     _phase("eval b (run_vio_sequence)", t0)
 
 
+# ------------------------------------------------------------------ phase api
+# Card vs CPU on the whole IMU stream (S samples): the tests' float32 bounds
+# at S = 200 (tests/test_torch_api_functions.py: 2e-6 on unit quaternions,
+# 1e-5 on v and p), grown linearly with S as round-off carried by the state.
+API_TOL_PER_200 = (2e-6, 1e-5)
+API_WINDOW = 100          # dead_reckon / predict_state against GT: 0.5 s windows
+API_WINDOW_FRAMES = (0, 20, 40)   # their first frames
+API_GT_TOL = (0.01, 0.02)   # m, m/s (tests/test_inertial.py)
+API_TILT = (0.2, -0.3)    # roll, pitch of the static tilt case (rad; tolerance 1e-5)
+API_PAIR = (0, 2)         # the default path's frame pair for the epipolar mask
+API_EPI_THRESH = 0.02     # BackendConfig.ransac_thresh
+
+
+def _api_filters(seq) -> None:
+    from vislam_tpu_torch import lie
+    from vislam_tpu_torch.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu_torch.inertial import (complementary_scan, dead_reckon,
+                                           orientation_from_accel, preintegrate)
+    from vislam_tpu_torch.inertial.preintegration import predict_state
+
+    def f32(x, dev):
+        return torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+
+    def run(dev):
+        g, a = f32(seq["imu_gyro"], dev), f32(seq["imu_accel"], dev)
+        dt = torch.full((g.shape[0],), 1.0 / 200.0, device=dev)
+        q0, v0, p0 = (f32(seq[k][0], dev) for k in ("gt_quat", "gt_vel", "gt_pos"))
+        out = {"tilt": orientation_from_accel(a), "comp": complementary_scan(q0, g, a, dt)[1]}
+        out["q"], out["v"], out["p"], out["ps"] = dead_reckon(q0, v0, p0, g, a, dt)
+        return {k: v.cpu() for k, v in out.items()}
+
+    S = len(seq["imu_gyro"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run(DEV)
+    wall = time.perf_counter() - t0
+    cpu = run("cpu")
+    q_tol, vp_tol = (t * S / 200 for t in API_TOL_PER_200)
+    tols = {"tilt": q_tol, "comp": q_tol, "q": q_tol, "v": vp_tol, "p": vp_tol, "ps": vp_tol}
+    errs = {k: float((card[k] - cpu[k]).abs().max()) for k in tols}
+    print(f"api: orientation_from_accel, complementary_scan, dead_reckon over the default "
+          f"path's IMU stream ({S} samples) in {wall:.2f} s on the card (a Python loop of "
+          f"~40 launches per sample); card vs CPU max |d| "
+          + ", ".join(f"{k} {errs[k]:.2e} (tolerance {tols[k]:.1e})" for k in tols), flush=True)
+    bad = [k for k in tols if not (torch.isfinite(card[k]).all() and errs[k] <= tols[k])]
+    if bad:
+        _fail(f"api: the card's {bad} disagree with the CPU's")
+    # The default path's motion drags an accelerometer tilt (specific force
+    # up to ~3 m/s^2 off gravity): its error against GT is printed, the
+    # filters are held to GT on the tests' cases below.
+    idx = np.arange(10, S, 10)
+    gt_rpy = lie.quat_to_rpy(f32(seq["gt_quat"][1:len(idx) + 1], "cpu"))
+    comp_err = float((lie.quat_to_rpy(card["comp"][idx - 1]) - gt_rpy)[:, :2].abs().max())
+    drift = float((card["ps"][idx - 1] - f32(seq["gt_pos"][1:len(idx) + 1], "cpu")).abs().max())
+    print(f"api: on the default path's motion, complementary_scan's roll/pitch within "
+          f"{comp_err:.3f} rad of GT, dead_reckon over {S / 200:.1f} s within {drift:.4f} m "
+          f"(printed, not bounded)", flush=True)
+
+    # tests/test_inertial.py's cases on the card: a static tilt, the
+    # complementary filter on its gentle sequence (seed 7), dead_reckon
+    # and predict_state over 0.5 s windows of the default path's stream.
+    from scipy.spatial.transform import Rotation
+
+    R = Rotation.from_euler("ZYX", [0.0, API_TILT[1], API_TILT[0]]).as_matrix()
+    rpy = lie.quat_to_rpy(orientation_from_accel(f32(R.T @ [0.0, 0.0, 9.81], DEV))).cpu()
+    tilt_err = float((rpy[:2] - torch.tensor(API_TILT)).abs().max())
+    gentle = make_synthetic_sequence(SyntheticConfig(n_frames=60, n_landmarks=10, seed=7,
+                                                     trans_amp=(0.08, 0.05, 0.03)))
+    n = len(gentle["imu_gyro"])
+    qf, _ = complementary_scan(f32(gentle["gt_quat"][0], DEV), f32(gentle["imu_gyro"], DEV),
+                               f32(gentle["imu_accel"], DEV),
+                               torch.full((n,), 1.0 / 200.0, device=DEV), alpha=0.01)
+    gentle_err = float((lie.quat_to_rpy(qf.cpu())
+                        - lie.quat_to_rpy(f32(gentle["gt_quat"][-1], "cpu"))).abs().max())
+    dt = torch.full((API_WINDOW,), 1.0 / 200.0, device=DEV)
+    win = []
+    for f in API_WINDOW_FRAMES:
+        lo, j = f * 10, f + API_WINDOW // 10
+        g, a = f32(seq["imu_gyro"][lo:lo + API_WINDOW], DEV), f32(
+            seq["imu_accel"][lo:lo + API_WINDOW], DEV)
+        q0, v0, p0 = (f32(seq[k][f], DEV) for k in ("gt_quat", "gt_vel", "gt_pos"))
+        _, v, p, _ = dead_reckon(q0, v0, p0, g, a, dt)
+        _, v2, p2 = predict_state(preintegrate(g, a, dt), lie.quat_to_mat(q0), v0, p0)
+        gt_p, gt_v = f32(seq["gt_pos"][j], "cpu"), f32(seq["gt_vel"][j], "cpu")
+        win.append([float((x.cpu() - y).abs().max())
+                    for x, y in ((p, gt_p), (v, gt_v), (p2, gt_p), (v2, gt_v))])
+    win = np.max(win, axis=0)
+    print(f"api: on the card, orientation_from_accel's static tilt within {tilt_err:.2e} rad "
+          f"(tolerance 1e-5), complementary_scan on the gentle sequence (seed 7, {n} samples) "
+          f"within {gentle_err:.4f} rad of GT roll/pitch/yaw (tolerance 0.05); over "
+          f"windows of {API_WINDOW} samples from frames {API_WINDOW_FRAMES}, dead_reckon within "
+          f"{win[0]:.4f} m, {win[1]:.4f} m/s and predict_state within {win[2]:.4f} m, "
+          f"{win[3]:.4f} m/s of GT (tolerances {API_GT_TOL[0]} m, {API_GT_TOL[1]} m/s)",
+          flush=True)
+    if not (tilt_err <= 1e-5 and gentle_err <= 0.05 and win[0] <= API_GT_TOL[0]
+            and win[1] <= API_GT_TOL[1] and win[2] <= API_GT_TOL[0]
+            and win[3] <= API_GT_TOL[1]):
+        _fail("api: a filter or the integrator misses GT on the card")
+
+
+def _api_matches(seq) -> None:
+    from vislam_tpu_torch import lie
+    from vislam_tpu_torch.calib import unproject_pixels
+    from vislam_tpu_torch.frontend import epipolar_inlier_mask, extract_features, match_descriptors
+    from vislam_tpu_torch.frontend.match import gather_matched
+    from vislam_tpu_torch.frontend.pose import epipolar_normals
+    from vislam_tpu_torch.utils.config import FrontendConfig
+
+    fe, cal = FrontendConfig(), seq["calib"]
+    i, j = API_PAIR
+    torch.cuda.synchronize()
+    reset_launches()
+    fa, fb = (extract_features(torch.as_tensor(seq["images"][k]).to(DEV, torch.float32), fe)
+              for k in (i, j))
+    matches = match_descriptors(fa.desc, fa.mask, fb.desc, fb.mask, ratio=fe.ratio_thresh,
+                                mutual=fe.mutual_check)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = {"shi_tomasi": 4, "match_top2": 1, "match_top2_per_pair": 1}
+    for counter, got in launches.items():
+        if got != expected.get(counter, 0):
+            _fail(f"api: {counter} launched {got} times for two frames' features and their "
+                  f"match (expected {expected.get(counter, 0)})")
+
+    # GT relative pose of the camera: X_j = R_ji X_i + t, t_dir = t / |t|.
+    T_bc = np.asarray(cal.T_body_cam, np.float64)
+    Rc, pc = [], []
+    for k in (i, j):
+        R_wb = lie.quat_to_mat(torch.as_tensor(seq["gt_quat"][k], dtype=torch.float64)).numpy()
+        Rc.append(R_wb @ T_bc[:3, :3])
+        pc.append(seq["gt_pos"][k] + R_wb @ T_bc[:3, 3])
+    R_ji = Rc[1].T @ Rc[0]
+    t = Rc[1].T @ (pc[0] - pc[1])
+    R_ji, t_dir = (torch.as_tensor(x, dtype=torch.float32) for x in (R_ji, t / np.linalg.norm(t)))
+
+    def mask_on(dev):
+        uv_a, uv_b, ok = gather_matched(fa.uv.to(dev), fb.uv.to(dev), _to_device(matches, dev))
+        rays_i, rays_j = (unproject_pixels(uv, cal.fx, cal.fy, cal.cx, cal.cy)
+                          for uv in (uv_a, uv_b))
+        inl = epipolar_inlier_mask(rays_i, rays_j, R_ji.to(dev), t_dir.to(dev), API_EPI_THRESH)
+        n, _ = epipolar_normals(rays_i, rays_j, R_ji.to(dev))
+        return [x.cpu() for x in (uv_a, uv_b, ok, inl, (n @ t_dir.to(dev)).abs())]
+
+    card, cpu = mask_on(DEV), mask_on("cpu")
+    same_gather = all(torch.equal(x, y) for x, y in zip(card[:3], cpu[:3]))
+    ok = card[2]
+    clear = (cpu[4] - API_EPI_THRESH).abs() > 1e-5
+    differ = int(((card[3] != cpu[3]) & clear).sum())
+
+    def share(t):
+        rays = [unproject_pixels(uv.to(DEV), cal.fx, cal.fy, cal.cx, cal.cy) for uv in card[:2]]
+        inl = epipolar_inlier_mask(*rays, R_ji.to(DEV), t.to(DEV), API_EPI_THRESH).cpu()
+        return float((inl & ok).sum()) / max(int(ok.sum()), 1)
+
+    # The matches' inlier share on the GT direction, and on the three
+    # directions perpendicular to it (t x each axis): a wrong direction
+    # keeps few of them.
+    gt_share = share(t_dir)
+    wrong = [share(torch.linalg.cross(t_dir, e) / torch.linalg.cross(t_dir, e).norm())
+             for e in torch.eye(3)]
+    print(f"api: frames {i} and {j} of the default path: launches {_nonzero(launches)} (exact); "
+          f"gather_matched on the card equal to the CPU's: {same_gather}; "
+          f"epipolar_inlier_mask at {API_EPI_THRESH}: {differ} rows differing from the CPU's "
+          f"away from the threshold ({int((~clear).sum())} within 1e-5 of it); inliers among "
+          f"{int(ok.sum())} matches {gt_share:.3f} on the GT direction, "
+          f"{', '.join(f'{w:.3f}' for w in wrong)} on the directions perpendicular to it "
+          f"(bounds: > 0.5 and 5x each of those)", flush=True)
+    if not (same_gather and differ == 0 and gt_share > 0.5 and 5 * max(wrong) < gt_share):
+        _fail("api: the epipolar mask or the matched gather disagrees with the CPU or the GT")
+
+
+def api_phase(seq) -> None:
+    """The last of the public surface on the card, each against the CPU."""
+    t0 = time.perf_counter()
+    _api_filters(seq)
+    _api_matches(seq)
+    _phase("api", t0)
+
+
 def _phase(name, t0) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3449,6 +3640,7 @@ def main() -> None:
     t0 = time.perf_counter()
     eval_phase(seq)
     _phase("eval", t0)
+    api_phase(seq)
     # The order of what follows: see the module's docstring.
     t0 = time.perf_counter()
     for name, ctx in profiled.items():

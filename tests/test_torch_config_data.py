@@ -88,7 +88,11 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
     (scripts/torch_eval_configs.py), in a fresh interpreter in which `jax`,
     `vislam_tpu`, `cv2` and `ml_dtypes` cannot be imported at all (the
     card's machine has none of them); none of it imports matplotlib (viz
-    imports it only to draw)."""
+    imports it only to draw). A kernel module comes first (the kernels
+    import `frontend.pyramid`, the import cycle a subpackage's exports could
+    close); then every subpackage's `__all__` resolves, also by a star
+    import, and no compiler (nvcc, g++) was started: kernels build at their
+    first launch."""
     script = textwrap.dedent("""
         import importlib, importlib.util, pkgutil, sys
 
@@ -101,11 +105,30 @@ def test_port_imports_neither_jax_nor_reference(tmp_path):
 
         sys.meta_path.insert(0, Block())
         sys.path.insert(0, REPO)
+        import os, subprocess
+        started, popen = [], subprocess.Popen.__init__
+
+        def record(self, args, *a, **k):
+            started.append(os.path.basename(str(args[0] if isinstance(args, list) else args)))
+            popen(self, args, *a, **k)
+
+        subprocess.Popen.__init__ = record
+        import vislam_tpu_torch.ops.harris_kernel
         import vislam_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(vislam_tpu_torch.__path__,
                                                        "vislam_tpu_torch.")]
         for n in names:
             importlib.import_module(n)
+        packages = [n for n in names if hasattr(sys.modules[n], "__path__")]
+        assert len(packages) == 12, packages
+        for n in packages:
+            exported = sys.modules[n].__all__
+            assert exported and all(getattr(sys.modules[n], e) is not None for e in exported), n
+            space = {}
+            exec(f"from {n} import *", space)
+            assert set(exported) <= set(space), n
+        compilers = [c for c in started if c.split()[0] in ("nvcc", "g++", "c++", "gcc", "cc")]
+        assert not compilers, started
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "vislam_tpu", "cv2", "ml_dtypes")]
         assert not bad, bad

@@ -1,8 +1,17 @@
-"""Triangulation, the window bundle adjustments and the map backend: pose
-graphs (SE(3), Sim(3)), loop detection, PnP, relocalization and keyframe
-maps (port of vislam_tpu.backend)."""
+"""Triangulation, the window bundle adjustments, photometric alignment and
+the map backend: pose graphs (SE(3), Sim(3)), loop detection, PnP,
+relocalization and keyframe maps (port of vislam_tpu.backend)."""
 
 from vislam_tpu_torch.backend.triangulate import triangulate_dlt, triangulate_midpoint
+from vislam_tpu_torch.backend.ba import (
+    BAProblem,
+    BAState,
+    build_normal_equations,
+    bundle_adjust,
+    reprojection_residuals,
+    schur_solve,
+)
+from vislam_tpu_torch.backend.photometric import PhotoResult, photometric_align
 from vislam_tpu_torch.backend.pose_graph import (
     PoseGraph,
     odometry_edges,
@@ -26,6 +35,14 @@ from vislam_tpu_torch.backend.trajectory_opt import KeyframeRecord, correct_traj
 __all__ = [
     "triangulate_midpoint",
     "triangulate_dlt",
+    "BAProblem",
+    "BAState",
+    "bundle_adjust",
+    "reprojection_residuals",
+    "build_normal_equations",
+    "schur_solve",
+    "photometric_align",
+    "PhotoResult",
     "PoseGraph",
     "optimize_pose_graph",
     "pose_graph_residuals",

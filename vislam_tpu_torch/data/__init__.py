@@ -17,3 +17,19 @@ from vislam_tpu_torch.data.synthetic import (
     write_euroc_fixture,
 )
 from vislam_tpu_torch.data.tum import TumDataset
+
+__all__ = [
+    "EurocDataset",
+    "KittiDataset",
+    "TumDataset",
+    "FrameWindow",
+    "PrefetchLoader",
+    "SyntheticConfig",
+    "make_synthetic_sequence",
+    "write_euroc_fixture",
+    "synthetic_calib",
+    "AdversarialConfig",
+    "AdversarialScene",
+    "make_adversarial_sequence",
+    "presets",
+]

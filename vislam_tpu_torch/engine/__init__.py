@@ -26,3 +26,25 @@ from vislam_tpu_torch.engine.batch import (
     sequence_key,
     stage_dataset,
 )
+
+__all__ = [
+    "EngineState",
+    "KeyframeWindow",
+    "init_state",
+    "stack_states",
+    "unstack_states",
+    "VIOEngine",
+    "FrameResult",
+    "FrameKey",
+    "HostFrameResult",
+    "frame_key",
+    "unpack_host_result",
+    "SequenceInputs",
+    "make_sequence_inputs",
+    "stage_dataset",
+    "run_sequence_scan",
+    "run_batch_scan",
+    "make_batch_inputs",
+    "batch_keys",
+    "sequence_key",
+]

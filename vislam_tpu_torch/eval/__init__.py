@@ -10,3 +10,15 @@ from vislam_tpu_torch.eval.traj_io import (
     write_trajectory_csv,
     write_trajectory_tum,
 )
+
+__all__ = [
+    "ate_rmse",
+    "rpe_rmse",
+    "umeyama_alignment",
+    "write_trajectory_csv",
+    "read_trajectory_csv",
+    "write_trajectory_tum",
+    "read_trajectory_tum",
+    "run_vio_sequence",
+    "smooth_bootstrap_prefix",
+]

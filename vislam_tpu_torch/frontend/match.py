@@ -1,6 +1,6 @@
 """Descriptor matching: top-2 core + Lowe ratio + mutual check (port of
-`vislam_tpu/frontend/match.py::match_descriptors`; the grid dedup, which
-the engine does not use, serves `eval/matchability.py`).
+`vislam_tpu/frontend/match.py`; the grid dedup, which the engine does not
+use, serves `eval/matchability.py`).
 
 The distance / top-2 / column-argmin core is `ops/match_kernel.py` (the
 CUDA kernel for CUDA tensors); the filter chain is tensor code.
@@ -58,6 +58,12 @@ def match_descriptors(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.8,
     if cell_rows > 0 and cell_cols > 0 and uv_a is not None and image_size is not None:
         ok = _grid_dedup(ok, dist, uv_a, cell_rows, cell_cols, image_size)
     return Matches(idx_b=arg1, dist=dist, mask=ok)
+
+
+def gather_matched(uv_a, uv_b, matches: Matches):
+    """Matched coordinate pairs: uv_a (K,2), the matched rows of uv_b (K,2)
+    and the mask."""
+    return uv_a, uv_b[matches.idx_b.long()], matches.mask
 
 
 def _grid_dedup(ok, dist, uv_a, cell_rows: int, cell_cols: int, image_size):

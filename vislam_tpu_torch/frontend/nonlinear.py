@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from vislam_tpu_torch.frontend.pyramid import downsample2, gaussian_blur
-from vislam_tpu_torch.ops.fed_kernel import fed_evolve
+from vislam_tpu_torch.ops.fed_kernel import fed_evolve, pm_g2  # noqa: F401  (the reference's name)
 from vislam_tpu_torch.ops.harris_kernel import response_nms
 
 

@@ -33,6 +33,12 @@ def epipolar_normals(rays_i, rays_j, R_ji):
     return n / torch.clamp(norm, min=1e-12), norm[..., 0]
 
 
+def epipolar_inlier_mask(rays_i, rays_j, R_ji, t_dir, thresh: float):
+    """|n . t| < thresh on normalized epipolar normals."""
+    n, _ = epipolar_normals(rays_i, rays_j, R_ji)
+    return torch.abs(n @ t_dir) < thresh
+
+
 def rotation_compensated_disparity(uv_i, uv_j, mask, R_ji, fx, fy, cx, cy):
     """Mean pixel displacement of the matches after removing the motion the
     rotation alone predicts (infinite-depth homography K R K^-1)."""

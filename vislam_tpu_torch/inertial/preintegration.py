@@ -1,5 +1,6 @@
-"""IMU preintegration, Forster-style, with first-order bias Jacobians (port
-of `vislam_tpu/inertial/preintegration.py`). dt == 0 rows are padding and
+"""IMU preintegration, Forster-style, with first-order bias Jacobians, and
+world-frame Euler dead-reckoning (port of
+`vislam_tpu/inertial/preintegration.py`). dt == 0 rows are padding and
 exact no-ops."""
 
 from __future__ import annotations
@@ -8,6 +9,7 @@ from typing import NamedTuple
 
 import torch
 
+from vislam_tpu_torch.lie.quat import mat_to_quat, quat_mul, quat_normalize, quat_to_mat
 from vislam_tpu_torch.lie.so3 import so3_exp, so3_hat, so3_left_jacobian
 
 
@@ -91,3 +93,36 @@ def bias_correct(pre: Preintegrated, dbg, dba) -> Preintegrated:
     dv = pre.dv + pre.J_dv_bg @ dbg + pre.J_dv_ba @ dba
     dp = pre.dp + pre.J_dp_bg @ dbg + pre.J_dp_ba @ dba
     return pre._replace(dR=dR, dv=dv, dp=dp)
+
+
+def _gravity_w(like, gravity):
+    return torch.eye(3, dtype=like.dtype, device=like.device)[2] * -gravity
+
+
+def predict_state(pre: Preintegrated, R_i, v_i, p_i, gravity=9.81):
+    """Propagate world-frame state (R, v, p) through a preintegrated factor."""
+    g_w = _gravity_w(v_i, gravity)
+    T = pre.dt
+    R_j = R_i @ pre.dR
+    v_j = v_i + g_w * T + R_i @ pre.dv
+    p_j = p_i + v_i * T + 0.5 * g_w * T * T + R_i @ pre.dp
+    return R_j, v_j, p_j
+
+
+def dead_reckon(q0, v0, p0, gyro, accel, dt, gravity=9.81):
+    """World-frame Euler dead-reckoning over a window: the reference's
+    computeAcceleration / computeVelocity / computePosition chain
+    (a_world = R a_meas + g_w, g_w = (0, 0, -g)), position first, then
+    velocity, then the attitude by the gyro's rotation vector. Returns
+    (q, v, p) after the window and the per-sample positions (S,3)."""
+    g_w = _gravity_w(v0, gravity)
+    q, v, p = q0, v0, p0
+    ps = []
+    for s in range(gyro.shape[0]):
+        w, a, d = gyro[s], accel[s], dt[s]
+        a_w = quat_to_mat(q) @ a + g_w
+        p = p + v * d + 0.5 * a_w * d * d
+        v = v + a_w * d
+        q = quat_normalize(quat_mul(q, mat_to_quat(so3_exp(w * d))))
+        ps.append(p)
+    return q, v, p, torch.stack(ps)

@@ -3,8 +3,12 @@
 from vislam_tpu_torch.lie.quat import (
     mat_to_quat,
     quat_canonical,
+    quat_conj,
+    quat_from_axis_angle,
+    quat_identity,
     quat_mul,
     quat_normalize,
+    quat_rotate,
     quat_slerp,
     quat_to_mat,
 )
@@ -22,8 +26,11 @@ from vislam_tpu_torch.lie.se3 import (
     se3_apply,
     se3_compose,
     se3_exp,
+    se3_from_matrix,
+    se3_identity,
     se3_inverse,
     se3_log,
+    se3_matrix,
 )
 from vislam_tpu_torch.lie.sim3 import (
     sim3_apply,
@@ -41,3 +48,5 @@ from vislam_tpu_torch.lie.euler import (
     rpy_to_quat,
     wrap_angle,
 )
+
+__all__ = [k for k in dir() if not k.startswith("_")]

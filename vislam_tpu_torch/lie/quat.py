@@ -9,6 +9,10 @@ import torch
 _EPS = 1e-12
 
 
+def quat_identity(dtype=torch.float32, *, device="cuda"):
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_normalize(q):
     """Normalize to unit quaternion; safe for zero input (returns identity)."""
     n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
@@ -38,6 +42,20 @@ def quat_mul(a, b):
         ],
         dim=-1,
     )
+
+
+def quat_conj(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_rotate(q, v):
+    """Rotate vector(s) v by unit quaternion q (same as quat_to_mat(q) @ v)."""
+    qw = q[..., :1]
+    # linalg.cross broadcasts only between operands of one rank.
+    qv, v = torch.broadcast_tensors(q[..., 1:], v)
+    # v' = v + 2 qv x (qv x v + w v)
+    t = 2.0 * torch.linalg.cross(qv, v, dim=-1)
+    return v + qw * t + torch.linalg.cross(qv, t, dim=-1)
 
 
 def quat_to_mat(q):
@@ -86,6 +104,12 @@ def mat_to_quat(m):
     q = torch.where(idx == 0, qw,
                     torch.where(idx == 1, qx, torch.where(idx == 2, qy, qz)))
     return quat_canonical(quat_normalize(q))
+
+
+def quat_from_axis_angle(axis, angle):
+    """Unit axis (...,3) + angle (...) -> quaternion."""
+    half = 0.5 * angle[..., None]
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
 
 
 def quat_slerp(q0, q1, t):

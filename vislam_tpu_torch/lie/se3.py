@@ -1,5 +1,4 @@
-"""SE(3) rigid transforms as (R, t) pairs (port of `vislam_tpu/lie/se3.py`:
-exp, log, compose, inverse, apply and the adjoint). A transform is the
+"""SE(3) rigid transforms as (R, t) pairs (port of `vislam_tpu/lie/se3.py`). A transform is the
 tuple (R, t) with R (...,3,3) and t (...,3); twists are (...,6) laid out
 [rho(3), phi(3)]: translation first, rotation second."""
 
@@ -14,6 +13,11 @@ from vislam_tpu_torch.lie.so3 import (
     so3_left_jacobian_inv,
     so3_log,
 )
+
+
+def se3_identity(dtype=torch.float32, *, device="cuda"):
+    return (torch.eye(3, dtype=dtype, device=device),
+            torch.zeros(3, dtype=dtype, device=device))
 
 
 def se3_exp(xi):
@@ -47,6 +51,18 @@ def se3_apply(T, p):
     """Apply the transform to points p (...,3) (broadcasts)."""
     R, t = T
     return (R @ p[..., None])[..., 0] + t
+
+
+def se3_matrix(T):
+    """(R, t) -> homogeneous 4x4 (batched)."""
+    R, t = T
+    bottom = torch.cat([torch.zeros_like(t[..., None, :]), torch.ones_like(t[..., None, :1])],
+                       dim=-1)
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
+
+
+def se3_from_matrix(M):
+    return M[..., :3, :3], M[..., :3, 3]
 
 
 def se3_adjoint(T):

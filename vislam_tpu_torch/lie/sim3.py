@@ -18,7 +18,7 @@ from vislam_tpu_torch.lie.so3 import so3_exp, so3_hat, so3_log
 _SMALL = 1e-6
 
 
-def sim3_identity(dtype=torch.float32, device=None):
+def sim3_identity(dtype=torch.float32, *, device="cuda"):
     return (torch.eye(3, dtype=dtype, device=device), torch.zeros(3, dtype=dtype, device=device),
             torch.ones((), dtype=dtype, device=device))
 

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels (csrc/), their nvcc build and their plain twins."""
+"""Hand-written CUDA kernels (csrc/), their nvcc build and their plain twins.
+Importing them builds nothing: each source is compiled at its first launch."""
 
 
 def fold_mapped(x, dim, size: int):
@@ -11,17 +12,20 @@ def fold_mapped(x, dim, size: int):
     return x.flatten(0, 1).contiguous()
 
 
+# After fold_mapped, which the kernel modules import from here.
+from vislam_tpu_torch.ops.fed_kernel import fed_evolve  # noqa: E402
+from vislam_tpu_torch.ops.harris_kernel import FAMILIES, response_nms  # noqa: E402
+from vislam_tpu_torch.ops.match_kernel import match_top2  # noqa: E402
+from vislam_tpu_torch.ops.threefry_kernel import threefry_categorical  # noqa: E402
+
+__all__ = ["response_nms", "fed_evolve", "match_top2", "threefry_categorical"]
+
 
 def _counters() -> dict:
     """name -> (wrapper, attribute that holds its count, key or None) of
     every kernel launch counter: one per response family, fed_evolve,
     match_top2, and of the match calls those batched (one A for several
     sets) and gated, and threefry_categorical."""
-    from vislam_tpu_torch.ops.fed_kernel import fed_evolve
-    from vislam_tpu_torch.ops.harris_kernel import FAMILIES, response_nms
-    from vislam_tpu_torch.ops.match_kernel import match_top2
-    from vislam_tpu_torch.ops.threefry_kernel import threefry_categorical
-
     out = {fam: (response_nms, "launches", fam) for fam in FAMILIES}
     out["fed_evolve"] = (fed_evolve, "launches", None)
     out["match_top2"] = (match_top2, "launches", None)
