@@ -148,6 +148,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
           card and on the CPU: final costs within 1e-4 relative, positions
           within 1e-2 m (what the float32 cost resolves), rotations and
           scales within 1e-3, 0 host syncs inside, wall ms printed;
+       e. Sim(3) exp's W in float32 on the card against float64 over
+          theta, |sigma| in {0} u logspace(-8, 0) and rotations near pi:
+          the largest error, and in 1e-6..1e-2, within 4e-7;
      Then the step options (phase variants), each check fatal, each path
      at 480x752, K = 768 (the KITTI mode: one level, K = 512), from the
      true initial state:
@@ -2522,10 +2525,42 @@ def _map_graph_check() -> None:
                   f"correction")
 
 
+# Sim(3)'s W in float32 against float64 (tests/test_torch_map_lie.py's
+# bound and grid: theta, |sigma| in {0} u logspace(-8, 0), rotations near pi).
+SIM3_W_BOUND = 4e-7
+
+
+def _map_sim3_W_check() -> None:
+    """e. Sim(3) exp's W on the card in float32 against the same function
+    in float64 on the CPU (its series truncation moves W by at most 1.8e-8)
+    over the tests' grid; the largest error overall and in the band
+    1e-6 <= max(theta, |sigma|) <= 1e-2, where the reference's closed forms
+    cancel, each within SIM3_W_BOUND."""
+    from vislam_tpu_torch.lie.sim3 import _sim3_W
+
+    mags = np.concatenate([[0.0], np.logspace(-8, 0, 33)])
+    thetas = np.concatenate([mags, [np.pi - 1e-3, np.pi - 1e-5]])
+    th, sg = [a.ravel() for a in np.meshgrid(thetas, np.concatenate([mags, -mags[1:]]))]
+    axis = np.random.default_rng(0).normal(size=(len(th), 3))
+    phi = (axis / np.linalg.norm(axis, axis=-1, keepdims=True) * th[:, None]).astype(np.float32)
+    sigma = sg.astype(np.float32)
+    W32 = _sim3_W(torch.from_numpy(phi).to(DEV), torch.from_numpy(sigma).to(DEV)).cpu().double()
+    W64 = _sim3_W(torch.from_numpy(phi).double(), torch.from_numpy(sigma).double())
+    err = (W32 - W64).abs().amax((-1, -2)).numpy()
+    r = np.maximum(np.linalg.norm(phi.astype(np.float64), axis=-1), np.abs(sigma))
+    band = (r >= 1e-6) & (r <= 1e-2)
+    print(f"map sim3 W: card float32 against float64 over {len(th)} (theta, sigma): largest "
+          f"|dW| {err.max():.2e} (band 1e-6..1e-2: {err[band].max():.2e} over {band.sum()}), "
+          f"held <= {SIM3_W_BOUND:.0e}", flush=True)
+    if not err.max() <= SIM3_W_BOUND:
+        _fail("map sim3 W: float32 W beyond its bound on the card")
+
+
 def map_phase() -> None:
     """The map backend on the card: a. loop correction (EVAL config 4's
     inputs); b. the CLI's map flags; c. relocalization after an outage;
-    d. pose graphs at EVAL config 6's size. Each check fatal."""
+    d. pose graphs at EVAL config 6's size; e. Sim(3)'s W in float32.
+    Each check fatal."""
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_map_")
@@ -2542,6 +2577,9 @@ def map_phase() -> None:
         t0 = time.perf_counter()
         _map_graph_check()
         _phase("map d (pose graphs)", t0)
+        t0 = time.perf_counter()
+        _map_sim3_W_check()
+        _phase("map e (sim3 W)", t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -4,7 +4,8 @@ reference values and bounds that `scripts/torch_eval_configs.py` holds the
 port's card runs to.
 
     JAX_PLATFORMS=cpu python scripts/eval_reference_spread.py --config 1
-        [--vary ulp|seed] [--branch cpu|tpu] [--draws 4] [--first 0] [--out FILE]
+        [--vary ulp|seed] [--seed 0] [--branch cpu|tpu] [--draws 4] [--first 0]
+        [--out FILE]
 
 Each config runs `scripts/eval_configs.py`'s own `run_vio` (configs 1, 2,
 3 and 4, with the options its `main()` gives each row), `run_cold` (2c) or
@@ -14,7 +15,8 @@ Each config runs `scripts/eval_configs.py`'s own `run_vio` (configs 1, 2,
 d moves every IMU sample (gyro and accelerometer, float32) by one ulp up
 or down at random (`numpy.random.default_rng(d)`); the images are not
 perturbed, since the default pipeline runs them in bfloat16, where a
-float32 ulp rounds away. With `--vary seed` draw d runs the engine with
+float32 ulp rounds away; every draw runs at RANSAC seed `--seed`. With
+`--vary seed` draw d runs the engine with
 RANSAC seed d (`VIOEngine(..., seed=d)`; config 5: `run_batch_scan(...,
 seed=d)`): the port draws its hypotheses
 from a stream of its own, so the reference's spread over streams is the
@@ -27,25 +29,52 @@ Prints each draw's row as it ends
 and then one JSON object with every draw's row and, per metric, the
 largest distance of a further draw from draw 0 (the spread).
 
-    JAX_PLATFORMS=cpu python scripts/eval_reference_spread.py --config 3
-        --locate-marg --branch tpu --draws 1 [--first d]
+    JAX_PLATFORMS=cpu python scripts/eval_reference_spread.py --ensemble
+        [--configs 1,2,2c,3,4,5,6] [--jobs 8] [--out FILE]
 
-locates where the port's row 3b `marg` parts from the reference's at each
-RANSAC seed d (both draw the same hypotheses since the port copies JAX's
-stream): the reference's run, the reference's run with its IMU samples
-moved by one ulp (draw 1's perturbation) and the port's run on the CPU
+measures the reference's per-seed ensemble that the port's paired holds
+take their bounds from: for each config and each RANSAC seed d
+(`ENSEMBLE_SEEDS`: 0-7, config 6 seed 0) the TPU branch at seed d on the
+inputs as generated (draw 0) and under each of the K = 4 one-ulp IMU
+draws k = 1..4 (`--vary ulp --seed d`), each (config, seed) in a process
+of its own (config 6: each draw), `--jobs` at a time. Prints and writes
+one JSON object {config: {metric: {"tpu": [8 draw-0 values], "ulp": [[4
+perturbed values] per seed], "spread": [max_k |ulp - tpu| per seed]}}},
+the processes' seconds, and the table's lines for `REFERENCE` in
+`scripts/torch_eval_configs.py`.
+
+    JAX_PLATFORMS=cpu python scripts/eval_reference_spread.py --config 3
+        --locate ate_vi_online_ba_marg --branch tpu --seed d
+
+locates where the port's trajectory behind one row (configs 1, 2, 3, 4:
+`LOCATABLE`) parts from the reference's at RANSAC seed d (both draw the
+same hypotheses since the port copies JAX's stream): the reference's run,
+its runs under the K = 4 one-ulp IMU draws and the port's run on the CPU
 (`scripts/torch_eval_configs.py`'s runner), frame by frame: the first
-frame where each pair's positions part by more than 1e-6 m and by more
-than 1e-4 m, the keyframes refined by then, the largest gap, each ATE.
+frame where each parts from the reference by more than 1e-6 m and by more
+than 1e-4 m, the largest gap, each ATE, and whether the port parts earlier
+than every one of the reference's own draws. `--config 4 --locate
+correction` runs both packages' loop correction on the port's keyframe
+archive (`locate_correction`).
+
+    JAX_PLATFORMS=cpu python scripts/eval_reference_spread.py --config 3
+        --lockstep ate_plain --branch tpu --seed d [--frames 20]
+
+steps the port from the reference's state at every frame (`lockstep`):
+what one step of the port changes, apart from what earlier steps
+accumulated.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+from concurrent.futures import ThreadPoolExecutor
 import json
 import os
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -71,6 +100,10 @@ CONFIGS = {
           ("ate_full", "ate_f1_100", "ate_f100_300", "ate_f300_500", "kf_maxerr_before",
            "kf_maxerr_after")),
 }
+
+# The ensemble's RANSAC seeds per config and its one-ulp draws per seed.
+ENSEMBLE_SEEDS = {c: range(1) if c == "6" else range(8) for c in CONFIGS}
+ULP_DRAWS = 4
 
 
 def perturbed(seq, draw: int):
@@ -201,10 +234,36 @@ def _first_apart(a, b, tol: float):
     return int(far[0]) + 1 if len(far) else None
 
 
-def locate_marg(seed: int) -> dict:
-    """Config 3b's marg row at RANSAC seed `seed`: the reference, the
-    reference under a 1-ulp IMU change, and the port on the CPU, frame by
-    frame (see the module docstring)."""
+# The `run_vio` options of each trajectory a row's metric is read from
+# (configs 1, 2, 3 and 4; "cfg": SystemConfig sections replaced).
+LOCATABLE = {
+    ("1", "ate"): dict(gt_scale=True),
+    ("2", "ate"): dict(gt_scale=False),
+    ("2", "scale_ratio"): dict(gt_scale=False),
+    ("2", "ate_vi_ba"): dict(gt_scale=False, vi_ba=True),
+    ("2", "scale_ratio_vi_ba"): dict(gt_scale=False, vi_ba=True),
+    ("2", "ate_open_unsupervised"): dict(gt_scale=False,
+                                         cfg=dict(engine=dict(vi_align_bootstrap=False))),
+    ("3", "ate_plain"): dict(gt_scale=True),
+    ("3", "ate_photometric"): dict(gt_scale=True, photometric=True),
+    ("3", "ate_online_ba"): dict(gt_scale=True, ba=True),
+    ("3", "ate_vi_open_loop"): dict(gt_scale=False),
+    ("3", "ate_vi_online_ba_ends"): dict(gt_scale=False, vi_ba=True),
+    ("3", "ate_vi_online_ba_marg"): dict(gt_scale=False, vi_ba=True,
+                                         cfg=dict(backend=dict(online_gauge="marg"))),
+    ("4", "ate_open_loop"): dict(gt_scale=True),
+}
+
+
+def locate(config: str, metric: str, seed: int) -> dict:
+    """Where the port's trajectory behind row `config` `metric` parts from
+    the reference's at RANSAC seed `seed` (both draw the same hypotheses
+    since the port copies JAX's stream): the reference's run (draw 0), its
+    ULP_DRAWS one-ulp IMU draws and the port's run on the CPU
+    (`scripts/torch_eval_configs.py`'s runner), frame by frame: the first
+    frame where each parts from draw 0 by more than 1e-6 m and by more
+    than 1e-4 m, the largest gap, each ATE; and whether the port parts
+    (1e-4 m) earlier than every one of the reference's own draws."""
     import eval_configs as ec
     import torch_eval_configs as tc
     from vislam_tpu.data import SyntheticConfig, make_synthetic_sequence
@@ -212,41 +271,235 @@ def locate_marg(seed: int) -> dict:
     from vislam_tpu_torch.data import make_synthetic_sequence as port_sequence
     from vislam_tpu_torch.data import SyntheticConfig as PortConfig
 
-    kw = CONFIGS["3"][0]
+    opts = dict(LOCATABLE[(config, metric)])
+    sections = opts.pop("cfg", {})
+    kw = CONFIGS[config][0]
     seq = make_synthetic_sequence(SyntheticConfig(**kw))
     seeded(seed)
-    marg = _with(backend=dict(online_gauge="marg"))
-    runs = {"reference": ec.run_vio(seq, cfg=marg, gt_scale=False, vi_ba=True)["poses"],
-            "reference, 1 ulp": ec.run_vio(perturbed(seq, 1), cfg=marg, gt_scale=False,
-                                           vi_ba=True)["poses"]}
-    port = tc._vio(port_sequence(PortConfig(**kw)), "cpu", seed,
-                   tc._with(backend=dict(online_gauge="marg")), gt_scale=False, vi_ba=True)
-    runs["port (CPU)"] = port["poses"]
+    runs = {"reference": ec.run_vio(seq, cfg=_with(**sections), **opts)["poses"]}
+    for k in range(1, ULP_DRAWS + 1):
+        runs[f"reference, 1 ulp draw {k}"] = ec.run_vio(perturbed(seq, k), cfg=_with(**sections),
+                                                        **opts)["poses"]
+    runs["port (CPU)"] = tc._vio(port_sequence(PortConfig(**kw)), "cpu", seed,
+                                 tc._with(**sections), **opts)["poses"]
     gt = seq["gt_pos"][1:len(seq["images"])]
-    out = {"seed": seed, "ate": {k: float(ate_rmse(v, gt, align=False)) for k, v in runs.items()}}
+    out = {"config": config, "metric": metric, "seed": seed,
+           "ate": {k: float(ate_rmse(v, gt, align=False)) for k, v in runs.items()}}
     ref = runs["reference"]
-    for name in ("reference, 1 ulp", "port (CPU)"):
-        p = runs[name]
+    for name, p in runs.items():
+        if name == "reference":
+            continue
         out[name] = dict(apart_1e6=_first_apart(p, ref, 1e-6), apart_1e4=_first_apart(p, ref, 1e-4),
                          max_dp=float(np.abs(p - ref).max()))
-        print(f"config 3b marg seed {seed}: {name} against the reference: positions part "
-              f"(> 1e-6 m) first at frame {out[name]['apart_1e6']}, (> 1e-4 m) at frame "
+        print(f"config {config} {metric} seed {seed}: {name} against the reference: positions "
+              f"part (> 1e-6 m) first at frame {out[name]['apart_1e6']}, (> 1e-4 m) at frame "
               f"{out[name]['apart_1e4']}; largest |dp| {out[name]['max_dp']:.3e} m; ATE "
               f"{out['ate'][name]:.6f} against {out['ate']['reference']:.6f} m", flush=True)
+    never = len(ref) + 1
+    draws = [out[f"reference, 1 ulp draw {k}"]["apart_1e4"] or never
+             for k in range(1, ULP_DRAWS + 1)]
+    out["port_first"] = bool((out["port (CPU)"]["apart_1e4"] or never) < min(draws))
+    print(f"config {config} {metric} seed {seed}: the port parts (> 1e-4 m) "
+          f"{'earlier than every' if out['port_first'] else 'no earlier than some'} one-ulp "
+          f"draw of the reference", flush=True)
+    return out
+
+
+def reference_lines(table: dict) -> str:
+    """The ensemble's keys for `REFERENCE` in `scripts/torch_eval_configs.py`,
+    per config and metric: "ulp" the four one-ulp values at each seed (to
+    1e-6), "spread" the largest move from draw 0 at each seed (3 digits)."""
+    lines = []
+    for c, metrics in table.items():
+        for m, e in metrics.items():
+            ulp = ", ".join("(" + ", ".join(f"{v:.6f}" for v in u) + ")" for u in e["ulp"])
+            spread = ", ".join(f"{v:.3g}" for v in e["spread"])
+            lines.append(f'"{c}" "{m}": draw 0 ({", ".join(f"{v:.6f}" for v in e["tpu"])}),\n'
+                         f'    ulp=({ulp}{"," if len(e["ulp"]) == 1 else ""}),\n'
+                         f'    spread=({spread}{"," if len(e["spread"]) == 1 else ""}),')
+    return "\n".join(lines)
+
+
+def lockstep(config: str, metric: str, seed: int, frames: int) -> list:
+    """The port's step (on the CPU) from the reference's state at every
+    frame of the trajectory behind row `config` `metric` (its step
+    options; no refine), against the reference's own step at RANSAC seed
+    `seed`: per frame the position apart, the decisions that differ and
+    the state fields apart most (max |d|); on keyframes also the
+    keyframe depths of points both keep. What one step of the port
+    changes, apart from what earlier steps accumulated."""
+    import jax
+
+    import torch_eval_configs as tc
+    from vislam_tpu.data import SyntheticConfig, make_synthetic_sequence
+    from vislam_tpu.engine import VIOEngine as JEngine
+    from vislam_tpu_torch.engine import VIOEngine as TEngine
+    from vislam_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+
+    opts = dict(LOCATABLE[(config, metric)])
+    sections = dict(opts.pop("cfg", {}))
+    if opts.get("photometric"):
+        sections["engine"] = dict(sections.get("engine", {}), photometric_refine=True)
+    seq = make_synthetic_sequence(SyntheticConfig(**CONFIGS[config][0]))
+    je = JEngine(seq["calib"], _with(**sections), seed=seed)
+    te = TEngine(seq["calib"], tc._with(**sections), seed, device="cpu")
+    init = dict(q_wb0=seq["gt_quat"][0], v_w0=seq["gt_vel"][0], p_w0=seq["gt_pos"][0])
+    js = je.initialize(seq["images"][0], **init)
+
+    def fields(st):
+        out = {}
+        for path, v in jax.tree_util.tree_leaves_with_path(st):
+            v = np.asarray(v)
+            if v.dtype.kind == "f" or v.dtype.name == "bfloat16":
+                out[jax.tree_util.keystr(path)] = v.astype(np.float64)
+        return out
+
+    out, last_kf = [], 0
+    for j in range(1, min(frames, len(seq["images"]))):
+        imu, dt = tc._imu(seq, j)
+        g = (float(np.linalg.norm(seq["gt_pos"][j] - seq["gt_pos"][last_kf]))
+             if opts["gt_scale"] else -1.0)
+        te.set_step_counter(j - 1)
+        ts, tres = te.step(state_from_numpy(jax.tree.map(np.asarray, js), "cpu"),
+                           seq["images"][j], imu, dt, g)
+        js, jres = je.step(js, seq["images"][j], imu, dt, g)
+        a, b = fields(js), fields(state_to_numpy(ts))
+        apart = sorted(((float(np.abs(a[k] - b[k]).max()), k) for k in a
+                        if k in b and a[k].shape == b[k].shape), reverse=True)[:4]
+        rec = {"frame": j, "dp": float(np.abs(np.asarray(jres.p_wc) - tres.p_wc.numpy()).max()),
+               "decisions": [f for f in ("num_matches", "num_inliers", "used_fallback",
+                                         "is_keyframe")
+                             if int(getattr(jres, f)) != int(getattr(tres, f))],
+               "fields": apart}
+        if bool(jres.is_keyframe):
+            last_kf = j
+            both = np.asarray(js.kf_depth_valid) & state_to_numpy(ts).kf_depth_valid
+            d = np.abs(a[".kf_depths"] - b[".kf_depths"])[both]
+            rec["kf_depths"] = (float(d.max()) if d.size else 0.0,
+                                float(a[".kf_depths"][both].max()) if d.size else 0.0)
+        print(f"config {config} {metric} seed {seed} frame {j}: the port's step from the "
+              f"reference's state: |dp| {rec['dp']:.2e} m; decisions differ "
+              f"{rec['decisions']}; fields apart most "
+              f"{', '.join(f'{k} {v:.1e}' for v, k in apart)}"
+              + (f"; keyframe depths apart by up to {rec['kf_depths'][0]:.2e} m (depths up "
+                 f"to {rec['kf_depths'][1]:.1f} m)" if "kf_depths" in rec else ""), flush=True)
+        out.append(rec)
+    return out
+
+
+def locate_correction(seed: int) -> dict:
+    """Config 4's loop correction at RANSAC seed `seed`: the port's run on
+    the CPU archives its keyframes (`scripts/torch_eval_configs.py`'s
+    `run_loop`), then the reference's and the port's `correct_trajectory` run
+    on that same archive: the loops, the keyframes' largest error after
+    each, the corrected positions apart, each final cost."""
+    import torch_eval_configs as tc
+    from vislam_tpu.backend import trajectory_opt as jto
+    from vislam_tpu_torch.backend import trajectory_opt as tto
+    from vislam_tpu_torch.data import SyntheticConfig as PortConfig
+    from vislam_tpu_torch.data import make_synthetic_sequence as port_sequence
+
+    seq = port_sequence(PortConfig(**CONFIGS["4"][0]))
+    c = seq["calib"]
+    archive = tc.run_loop(seq, "cpu", seed)["archive"]
+    kf_gt = np.array([seq["gt_pos"][k.frame_index] for k in archive])
+    kw = dict(min_separation=10, sim_thresh=0.80, min_inliers=25)
+    t_p, _, t_info = tto.correct_trajectory(archive, c.fx, c.fy, c.cx, c.cy, device="cpu", **kw)
+    j_p, _, j_info = jto.correct_trajectory([jto.KeyframeRecord(*k) for k in archive],
+                                            c.fx, c.fy, c.cx, c.cy, **kw)
+    out = {"seed": seed, "loops_equal": [tuple(x) for x in t_info["loops"]]
+           == [tuple(x) for x in j_info["loops"]],
+           "kf_maxerr_after": {"port": float(np.linalg.norm(t_p - kf_gt, axis=-1).max()),
+                               "reference": float(np.linalg.norm(np.asarray(j_p) - kf_gt,
+                                                                 axis=-1).max())},
+           "max_dp": float(np.abs(t_p - np.asarray(j_p)).max()),
+           "final_cost": {"port": t_info["final_cost"], "reference": float(j_info["final_cost"])}}
+    print(f"config 4 seed {seed}: both corrections of the port's archive ({len(archive)} "
+          f"keyframes): loops equal {out['loops_equal']}; keyframe error after "
+          f"{out['kf_maxerr_after']['port']:.6f} (port) / "
+          f"{out['kf_maxerr_after']['reference']:.6f} (reference) m; positions apart by up to "
+          f"{out['max_dp']:.2e} m; final cost {out['final_cost']['port']:.6f} / "
+          f"{out['final_cost']['reference']:.6f}", flush=True)
+    return out
+
+
+def ensemble(configs, jobs: int, out_path=None) -> dict:
+    """The reference's per-seed ensemble (see the module docstring): one
+    `--vary ulp --branch tpu --seed d` process per (config, seed), per
+    draw for config 6, `jobs` at a time, the longest first."""
+    order = {"6": 0, "3": 1, "2": 2, "4": 3, "2c": 4, "5": 5, "1": 6}
+    tasks = []
+    for c in sorted(configs, key=order.get):
+        for d in ENSEMBLE_SEEDS[c]:
+            spans = [(k, 1) for k in range(ULP_DRAWS + 1)] if c == "6" else [(0, ULP_DRAWS + 1)]
+            tasks += [(c, d, first, n) for first, n in spans]
+    results, seconds = {}, {}
+    t_all = time.perf_counter()
+
+    def run(task, td):
+        c, d, first, n = task
+        path = os.path.join(td, f"{c}-{d}-{first}.json")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--config", c, "--vary", "ulp",
+                        "--branch", "tpu", "--seed", str(d), "--first", str(first), "--draws",
+                        str(n), "--out", path], stdout=subprocess.DEVNULL, check=True)
+        seconds[f"{c}/{d}/{first}"] = time.perf_counter() - t0
+        print(f"config {c} seed {d} draws {first}-{first + n - 1}: "
+              f"{seconds[f'{c}/{d}/{first}']:.0f} s", flush=True)
+        with open(path) as fh:
+            return c, d, json.load(fh)["rows"]
+
+    with tempfile.TemporaryDirectory() as td, ThreadPoolExecutor(jobs) as pool:
+        for c, d, rows in pool.map(run, tasks, [td] * len(tasks)):
+            results.setdefault(c, {}).setdefault(d, {}).update(
+                {int(k): v for k, v in rows.items()})
+    table = {}
+    for c, by_seed in results.items():
+        seeds = sorted(by_seed)
+        for m in CONFIGS[c][1]:
+            tpu = [by_seed[d][0][m] for d in seeds]
+            ulp = [[by_seed[d][k][m] for k in range(1, ULP_DRAWS + 1)] for d in seeds]
+            table.setdefault(c, {})[m] = {
+                "tpu": tpu, "ulp": ulp,
+                "spread": [max(abs(v - t) for v in u) for t, u in zip(tpu, ulp)]}
+    out = {"ensemble": table, "seconds": seconds, "wall_s": time.perf_counter() - t_all,
+           "process_s": sum(seconds.values())}
+    print(reference_lines(table))
+    print(json.dumps(out))
+    if out_path:
+        with open(out_path, "w") as fh:
+            json.dump(out, fh)
     return out
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", required=True, choices=sorted(CONFIGS))
+    ap.add_argument("--config", choices=sorted(CONFIGS))
     ap.add_argument("--vary", default="ulp", choices=["ulp", "seed"])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the RANSAC seed of --vary ulp and --locate")
+    ap.add_argument("--ensemble", action="store_true",
+                    help="the per-seed ensemble of every config in --configs")
+    ap.add_argument("--configs", default="1,2,2c,3,4,5,6")
+    ap.add_argument("--jobs", type=int, default=8, help="--ensemble: processes at a time")
     ap.add_argument("--branch", default="cpu", choices=["cpu", "tpu"])
     ap.add_argument("--draws", type=int, default=4, help="draws in all, draw 0 included")
     ap.add_argument("--first", type=int, default=0, help="first draw")
     ap.add_argument("--out", default=None, help="also write the JSON here")
-    ap.add_argument("--locate-marg", action="store_true",
-                    help="config 3: locate where the port's marg row parts from the reference's")
+    ap.add_argument("--locate", default=None, metavar="METRIC",
+                    help="locate where the port's trajectory behind --config's METRIC parts "
+                         "from the reference's at --seed (config 4's loop correction: "
+                         "--config 4 --locate correction)")
+    ap.add_argument("--lockstep", default=None, metavar="METRIC",
+                    help="the port's step from the reference's state at each frame of "
+                         "--config's METRIC at --seed")
+    ap.add_argument("--frames", type=int, default=20, help="--lockstep: frames")
     args = ap.parse_args()
+    if args.ensemble:
+        ensemble(args.configs.split(","), args.jobs, args.out)
+        return
+    if args.config is None:
+        ap.error("--config is required")
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -254,9 +507,14 @@ def main():
 
     if args.branch == "tpu":
         tpu_branch()
-    if args.locate_marg:
-        out = [locate_marg(d) for d in range(args.first, args.first + args.draws)]
-        print(json.dumps(out))
+    if args.locate == "correction" and args.config == "4":
+        print(json.dumps(locate_correction(args.seed)))
+        return
+    if args.locate:
+        print(json.dumps(locate(args.config, args.locate, args.seed)))
+        return
+    if args.lockstep:
+        print(json.dumps(lockstep(args.config, args.lockstep, args.seed, args.frames)))
         return
     kw, metrics = CONFIGS[args.config]
     if args.config == "5":
@@ -264,18 +522,22 @@ def main():
     else:
         seq = make_synthetic_sequence(SyntheticConfig(**kw))
     rows = {}
+    if args.vary == "ulp":
+        seeded(args.seed)
     for d in range(args.first, args.first + args.draws):
         t0 = time.perf_counter()
         if args.vary == "seed":
             seeded(d)
             rows[d] = run_config(args.config, seq, seed=d)
         elif args.config == "5":
-            rows[d] = run_config(args.config, [perturbed(s, d) for s in seq])
+            rows[d] = run_config(args.config, [perturbed(s, d) for s in seq], seed=args.seed)
         else:
             rows[d] = run_config(args.config, perturbed(seq, d))
         print(f"config {args.config} draw {d}: {rows[d]} ({time.perf_counter() - t0:.0f} s)",
               flush=True)
     out = {"config": args.config, "vary": args.vary, "branch": args.branch, "rows": rows}
+    if args.vary == "ulp":
+        out["seed"] = args.seed
     if 0 in rows and len(rows) > 1:
         out["spread"] = {m: max(abs(r[m] - rows[0][m]) for d, r in rows.items() if d)
                          for m in metrics if m in rows[0]}

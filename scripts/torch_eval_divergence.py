@@ -1,11 +1,14 @@
 """Where two runs of one EVAL config part, frame by frame: the port's card
 run against its CPU run, and its online-BA run against its plain run.
 
-    python3 scripts/torch_eval_divergence.py [--seeds 5] [--max-frames N] [--cpu]
-                                             [--out FILE]
+    python3 scripts/torch_eval_divergence.py [--seeds 5] [--row plain|marg]
+                                             [--max-frames N] [--cpu] [--out FILE]
 
 Runs EVAL config 3's pinned sequence (`scripts/torch_eval_configs.py`) at
-GT scale, every run stepped in lockstep, for each RANSAC seed:
+GT scale (`--row plain`: the plain row and the online BA), or at IMU scale
+with the VI-BA under the `marg` gauge (`--row marg`: row 3b `marg`, its
+steps without the refine as the "plain" run), every run stepped in
+lockstep, for each RANSAC seed:
 
 1. The draws. Every run draws frame n's RANSAC hypotheses under the
    reference's key fold_in(PRNGKey(seed), n) (`engine.frame_key`), on the
@@ -19,10 +22,13 @@ GT scale, every run stepped in lockstep, for each RANSAC seed:
    and the positions apart; and the card's step from the CPU run's state
    on the same inputs and key, against the CPU's step: what the card's
    arithmetic alone changes in that frame.
-3. Plain against online BA (`refine_window` on each keyframe, the `ends`
-   gauge, which config 3 holds neutral), on the card (as the harness runs
+3. Plain against online BA (`refine_window` on each keyframe: the `ends`
+   gauge, which config 3 holds neutral; `--row marg`: the VI-BA under the
+   `marg` gauge), on the card (as the harness runs
    it) and on the CPU. Per frame the same fields, and at each keyframe how
-   far the refine moved the live position and the keyframe anchor.
+   far the refine moved the live position and the keyframe anchor, and
+   how far the card's refine of the CPU run's stepped state lands from
+   the CPU's refine.
 
 For each pair, prints the first frame where the positions part by more
 than 1e-6 m and the first frame where a decision differs (stages in the
@@ -49,15 +55,20 @@ STAGES = ("detected", "matches", "inliers", "fallback", "keyframe")
 APART_M = 1e-6
 
 
+# The rows it follows: (SystemConfig sections replaced, at GT scale).
+ROWS = {"plain": ({}, True),
+        "marg": (dict(backend=dict(online_gauge="marg", vi_factors=True)), False)}
+
+
 class Run:
     """One run of the step over the sequence: its engine (keys from `seed`),
     state and per-frame records."""
 
-    def __init__(self, name, seq, cfg, device, seed, online_ba):
+    def __init__(self, name, seq, cfg, device, seed, online_ba, gt_scale=True):
         from vislam_tpu_torch.engine import VIOEngine
 
         self.name, self.seq, self.seed = name, seq, seed
-        self.online_ba = online_ba
+        self.online_ba, self.gt_scale = online_ba, gt_scale
         self.eng = VIOEngine(seq["calib"], cfg, seed, device=device)
         self.state = self.eng.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0],
                                          v_w0=seq["gt_vel"][0], p_w0=seq["gt_pos"][0])
@@ -66,7 +77,8 @@ class Run:
 
     def inputs(self, j):
         imu, dt = _imu(self.seq, j)
-        gt = float(np.linalg.norm(self.seq["gt_pos"][j] - self.seq["gt_pos"][self.last_kf]))
+        gt = (float(np.linalg.norm(self.seq["gt_pos"][j] - self.seq["gt_pos"][self.last_kf]))
+              if self.gt_scale else -1.0)
         return self.seq["images"][j], imu, dt, gt
 
     def advance(self, j):
@@ -80,7 +92,7 @@ class Run:
         if rec["keyframe"]:
             self.last_kf = j
             if self.online_ba:
-                stepped = self.state
+                stepped = self.stepped = self.state
                 self.state = refine_window(stepped, self.eng.cfg, c.fx, c.fy, c.cx, c.cy)
                 rec["refine_dp"] = _max_abs(self.state.p_wc, stepped.p_wc)
                 rec["refine_dR"] = _max_abs(self.state.kf_R_wc, stepped.kf_R_wc)
@@ -143,19 +155,22 @@ def parted(ra, rb) -> dict:
             "stages": stages, "max_dp": dmax}
 
 
-def compare(seq, device, seed, n, log) -> dict:
-    """The three comparisons at one seed; returns what it printed."""
+def compare(seq, device, seed, n, log, row="plain") -> dict:
+    """The three comparisons at one seed of `row` (`ROWS`); returns what it
+    printed."""
     import torch
 
     from vislam_tpu_torch.engine import VIOEngine
     from vislam_tpu_torch.engine.engine import MAIN_PATHS, RESCUE_PATHS, FrameKey
+    from vislam_tpu_torch.engine.refine import refine_window
     from vislam_tpu_torch.ops.threefry_kernel import draw_categorical
     from vislam_tpu_torch.engine.state import tree_to
     from vislam_tpu_torch.eval import ate_rmse
     from vislam_tpu_torch.utils import prng
     from torch_eval_configs import _with
 
-    cfg = _with()
+    sections, gt_scale = ROWS[row]
+    cfg = _with(**sections)
     H, M = cfg.backend.ransac_hyps, cfg.frontend.max_keypoints
     first = [draw_categorical(FrameKey(prng.key_tensor(prng.prng_key(seed), d),
                                        torch.zeros((), dtype=torch.int32, device=d)),
@@ -165,10 +180,10 @@ def compare(seq, device, seed, n, log) -> dict:
         f"index for index: {torch.equal(*first)}; first indices {first[0][0, :4].tolist()}")
 
     runs = {
-        "card_plain": Run("card plain", seq, cfg, device, seed, False),
-        "cpu_plain": Run("CPU plain", seq, cfg, "cpu", seed, False),
-        "card_ba": Run("card online BA", seq, cfg, device, seed, True),
-        "cpu_ba": Run("CPU online BA", seq, cfg, "cpu", seed, True),
+        "card_plain": Run("card plain", seq, cfg, device, seed, False, gt_scale),
+        "cpu_plain": Run("CPU plain", seq, cfg, "cpu", seed, False, gt_scale),
+        "card_ba": Run("card online BA", seq, cfg, device, seed, True, gt_scale),
+        "cpu_ba": Run("CPU online BA", seq, cfg, "cpu", seed, True, gt_scale),
     }
     forced = []
     card_eng = VIOEngine(seq["calib"], cfg, seed, device=device)
@@ -190,6 +205,14 @@ def compare(seq, device, seed, n, log) -> dict:
         f.update(detected=(n_card, n_cpu), keypoints_apart=apart, keypoint_shift=shift)
         runs["card_plain"].records[-1]["detected"] = (n_card, apart)
         runs["cpu_plain"].records[-1]["detected"] = (n_cpu, 0)
+        if runs["cpu_ba"].records[-1]["keyframe"]:
+            # The card's refine of the CPU online-BA run's stepped state.
+            ba = runs["cpu_ba"]
+            refined = refine_window(tree_to(ba.stepped, card_eng.device), card_eng.cfg,
+                                    seq["calib"].fx, seq["calib"].fy, seq["calib"].cx,
+                                    seq["calib"].cy)
+            f.update(refine_dp_from_cpu_state=_max_abs(refined.p_wc, ba.state.p_wc),
+                     refine_dkf_from_cpu_state=_max_abs(refined.kf_p_wc, ba.state.kf_p_wc))
         forced.append(f)
     log(f"seed {seed}: {len(runs)} runs of {n - 1} frames in lockstep, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -199,8 +222,13 @@ def compare(seq, device, seed, n, log) -> dict:
         line = (f"  frame {j}: detected card/CPU {f['detected'][0]}/{f['detected'][1]}, "
                 f"{f['keypoints_apart']} apart (shared within {f['keypoint_shift']:.1e} px); "
                 f"card step from the CPU state: |dp| {f['dp_from_cpu_state']:.2e} m"
-                + (f", differs in {f['stages']}" if f["stages"] else ""))
-        if f["keypoints_apart"] or f["stages"] or f["dp_from_cpu_state"] > APART_M:
+                + (f", differs in {f['stages']}" if f["stages"] else "")
+                + (f"; card refine from the CPU online BA's state: |dp| "
+                   f"{f['refine_dp_from_cpu_state']:.2e} m, keyframes' |dp| "
+                   f"{f['refine_dkf_from_cpu_state']:.2e} m"
+                   if "refine_dp_from_cpu_state" in f else ""))
+        if (f["keypoints_apart"] or f["stages"] or f["dp_from_cpu_state"] > APART_M
+                or f.get("refine_dkf_from_cpu_state", 0.0) > APART_M):
             log(line)
         out["frames"].append({k: v for k, v in f.items() if k != "p_step"})
     pairs = {"card vs CPU, plain": ("card_plain", "cpu_plain"),
@@ -239,6 +267,7 @@ def compare(seq, device, seed, n, log) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", default="5", help="comma-separated RANSAC seeds")
+    ap.add_argument("--row", default="plain", choices=sorted(ROWS))
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--cpu", action="store_true", help="the card's runs on the CPU too")
     ap.add_argument("--out", default=None)
@@ -261,8 +290,8 @@ def main(argv=None) -> int:
     if args.max_frames:
         kw["n_frames"] = min(kw["n_frames"], args.max_frames)
     seq = make_synthetic_sequence(SyntheticConfig(**kw))
-    out = [compare(seq, device, int(s), kw["n_frames"], lambda m: print(m, flush=True))
-           for s in args.seeds.split(",")]
+    out = [compare(seq, device, int(s), kw["n_frames"], lambda m: print(m, flush=True),
+                   args.row) for s in args.seeds.split(",")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

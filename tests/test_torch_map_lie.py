@@ -79,11 +79,11 @@ def test_se3_compose_inverse_round_trip(rng):
                                          (0.3, np.float32), (1.2, np.float32)])
 def test_sim3_exp_log_match_reference(rng, scale, dtype):
     """exp and log of the reference's regimes: theta and sigma each small
-    (below 1e-6) or regular, and rotations near pi. Between 1e-6 and ~1e-3
-    the general-case coefficients cancel catastrophically in float32, in
-    both packages alike (at theta ~ 2e-5, W is off the identity by 4e-3,
-    each package its own way): there both run in float64 and agree to
-    round-off."""
+    (below 1e-6) or regular, and rotations near pi. Between 1e-6 and ~1e-2
+    the reference's general-case coefficients cancel catastrophically in
+    float32 (at theta ~ 2e-5, its W is off the identity by 4e-3), the
+    port's series do not (`test_sim3_W_float32_matches_reference_float64`):
+    there both run in float64 and agree to round-off."""
     xi = _twists(rng, 48, 7, scale).astype(dtype)
     with jax.enable_x64(dtype == np.float64):
         j_T = _np(jsim3.sim3_exp(jnp.asarray(xi)))
@@ -98,6 +98,59 @@ def test_sim3_exp_log_match_reference(rng, scale, dtype):
                                j_log, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(tsim3._sim3_W(torch.from_numpy(xi[:, 3:6]),
                                              torch.from_numpy(xi[:, 6])).numpy(), j_W, **TOL)
+
+
+def _W_grid(rng):
+    """(phi, sigma) float64 over theta, |sigma| in {0} u logspace(-8, 0)
+    (both signs of sigma, a random axis per pair) and theta = pi - 1e-3,
+    pi - 1e-5 at every sigma."""
+    mags = np.concatenate([[0.0], np.logspace(-8, 0, 33)])
+    thetas = np.concatenate([mags, [np.pi - 1e-3, np.pi - 1e-5]])
+    th, sg = [a.ravel() for a in np.meshgrid(thetas, np.concatenate([mags, -mags[1:]]))]
+    axis = rng.normal(size=(len(th), 3))
+    return axis / np.linalg.norm(axis, axis=-1, keepdims=True) * th[:, None], sg
+
+
+def test_sim3_W_float32_matches_reference_float64(rng):
+    """The port's float32 W against the reference's W in float64 (round-off
+    ~1e-10 there) on the same float32 inputs, over the whole theta, sigma
+    grid, the reference's cancelling band 1e-6..1e-2 included: within 4e-7
+    (measured 2.9e-7, at sigma = 1, theta = 3.2e-4; W entries up to e:
+    ~2.5 float32 ulps) beyond the reference's own truncation below its
+    switch. The reference's float32 W misses by 4.6e-2 on this grid (the
+    port kept its formula before the series)."""
+    phi, sigma = [x.astype(np.float32).astype(np.float64) for x in _W_grid(rng)]
+    with jax.enable_x64(True):
+        W64 = np.asarray(jax.jit(jsim3._sim3_W)(jnp.asarray(phi), jnp.asarray(sigma)))
+    W32 = tsim3._sim3_W(_t(phi), _t(sigma)).numpy()
+    # Below its switch the reference drops sigma from A and B: its float64
+    # W is off by up to |sigma| there (|dW/dsigma| <= 1 at theta <= pi).
+    ref_trunc = np.where(np.abs(sigma) < 1e-6, np.abs(sigma), 0.0)[:, None, None]
+    assert (np.abs(W32 - W64) - ref_trunc).max() <= 4e-7
+    # The grid reaches the reference's cancelling band.
+    W32_ref = np.asarray(jax.jit(jsim3._sim3_W)(jnp.asarray(phi, jnp.float32),
+                                                jnp.asarray(sigma, jnp.float32)))
+    assert np.abs(W32_ref - W64).max() > 1e-2
+
+
+def test_sim3_log_exp_round_trip_float32_small_steps(rng):
+    """sim3_log(sim3_exp(xi)) in float32 for rho, phi, |sigma| each in
+    1e-6..1e-2 (log-uniform, random directions and signs): rho back within
+    1e-6 relative (measured 1.9e-7; 2.3e-2 with the reference's W), phi
+    within 1e-6 relative, sigma within 1.2e-7 absolute (the float32 ulp of
+    s = e^sigma near 1; measured 5.9e-8)."""
+    n = 200
+    mag = 10 ** rng.uniform(-6, -2, size=(n, 3))
+    axes = rng.normal(size=(n, 2, 3))
+    axes /= np.linalg.norm(axes, axis=-1, keepdims=True)
+    xi = np.concatenate([axes[:, 0] * mag[:, :1], axes[:, 1] * mag[:, 1:2],
+                         (rng.choice([-1.0, 1.0], size=n) * mag[:, 2])[:, None]], -1)
+    xi = xi.astype(np.float32)
+    back = tsim3.sim3_log(tsim3.sim3_exp(torch.from_numpy(xi))).numpy()
+    for sl in (slice(0, 3), slice(3, 6)):
+        rel = np.linalg.norm(back[:, sl] - xi[:, sl], axis=-1) / np.linalg.norm(xi[:, sl], axis=-1)
+        assert rel.max() <= 1e-6
+    assert np.abs(back[:, 6] - xi[:, 6]).max() <= 1.2e-7
 
 
 def test_sim3_compose_inverse_apply_match_reference(rng):
