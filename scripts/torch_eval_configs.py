@@ -28,19 +28,28 @@ CPU alike. The reference's own rows move by up to 0.01 m (config 1),
 0.30-0.41 m (2c) and 0.10-0.29 m (6) from one RANSAC seed to another, and
 some by millimetres under one float32 ulp of the IMU samples. Each config
 runs at seeds 0 to n - 1 (`SEEDS`, or --seeds: the reference's seeds 0-7;
-config 6 seed 0) and every metric is held so (`hold`):
+config 6 seed 0) and every metric is held so (`hold`). The reference is
+measured twice at each seed: as XLA's CPU compiler builds it by default,
+fusing multiply-adds where the host has FMA ("tpu", draw 0), and the same
+program on the same inputs compiled without them ("nofma"); the port
+rounds every product on the CPU and fuses some on the card, and either
+compile is the reference's outcome:
 
 - paired, at each seed d the port runs: |port_d - reference_d| <=
-  max(2 s_d, 1e-4) in the metric's unit, s_d the reference's largest move
-  at seed d under four one-ulp IMU draws (`REFERENCE` "spread"); a count
-  (`DISCRETE`: the loops closed) within the range of the reference's five
-  runs at d;
+  max(2 s_d, 1e-4) or |port_d - nofma_d| <= max(2 s_d, 1e-4) in the
+  metric's unit, s_d the reference's largest move at seed d under four
+  one-ulp IMU draws (`REFERENCE` "spread"): the bound keeps its width,
+  only its centre may be either compile; a count (`DISCRETE`: the loops
+  closed) within the range of the reference's six runs at d (draw 0, the
+  four one-ulp draws, the no-FMA run);
 - over the seeds (configs run at 8): the medians within the reference's
-  IQR, and the port's smallest and largest value within the reference's
-  range widened by the IQR; a count within the reference's range. Where
-  one of the reference's own one-ulp seed sets fails that median hold
-  against its draw 0, the median hold takes the ensemble's median and
-  IQR (draw 0 and the four sets; `median_reference`);
+  IQR, and the port's smallest and largest value within the union of the
+  reference's draw-0 and no-FMA values, widened by draw 0's IQR; a count
+  within that union's range. Where one of the reference's own one-ulp
+  seed sets fails that median hold against its draw 0, the median hold
+  takes the ensemble's median and IQR (draw 0 and the four sets;
+  `median_reference`). Each metric's line also gives the verdict by draw
+  0 alone (the rule before the no-FMA compile was measured);
 - config 3's online BA at GT scale, neutral by design, equal to the plain
   run at each seed within the reference's own largest distance between
   the two (`NEUTRAL`); config 6's checkpoint round trip bitwise.
@@ -102,6 +111,13 @@ SEEDS = {"1": 8, "2": 8, "2c": 8, "3": 8, "4": 8, "5": 8, "6": 1}
 # digit but for 2c (up to 2.0e-5) and 6 (up to 2.4e-3), which were measured
 # on another host. "cpu" is its CPU branch's row at seed 0 (EVAL.md r05's
 # row is "r05", the regeneration at 6eb020b "head_pr10").
+# "nofma" is draw 0 at each seed compiled without fused multiply-adds, from
+# `JAX_PLATFORMS=cpu python scripts/eval_reference_spread.py --ensemble
+# --part nofma --jobs 8` (--configs 1, then the rest) at a1e163b (the JAX
+# package unchanged since c0cd5dc): 1410.7 s on 8 CPU cores, 11021 s in its
+# processes; host "Intel(R) Xeon(R) Processor" with fma, avx2 and avx512f in
+# /proc/cpuinfo's flags, jax 0.9.0; every process's compile probe passed
+# (the default compile fused, the no-FMA one rounded each product).
 REFERENCE = {
     "1": {
         "ate": dict(r05=0.2, cpu=0.200192, tpu=(0.188346, 0.180522, 0.186334, 0.186069, 0.177398,
@@ -110,7 +126,8 @@ REFERENCE = {
             (0.186069, 0.186066, 0.186068, 0.186068), (0.177398, 0.177398, 0.177397, 0.177398),
             (0.189083, 0.189083, 0.189089, 0.189083), (0.178135, 0.178135, 0.178134, 0.178134),
             (0.175414, 0.175414, 0.175414, 0.175414)), spread=(6.48e-07, 5.96e-07, 6.89e-07,
-            3.22e-06, 1.2e-06, 5.31e-06, 7.17e-07, 6.08e-07)),
+            3.22e-06, 1.2e-06, 5.31e-06, 7.17e-07, 6.08e-07),
+            nofma=(0.188346, 0.180522, 0.186333, 0.186066, 0.177437, 0.189084, 0.178135, 0.175446)),
     },
     "2c": {
         "ate_live": dict(r05=0.737, cpu=0.736654, tpu=(0.431682, 0.728766, 0.399298, 0.431283,
@@ -119,14 +136,16 @@ REFERENCE = {
             (0.431290, 0.431287, 0.431284, 0.431286), (0.614103, 0.614085, 0.614199, 0.613940),
             (0.453001, 0.762236, 0.762229, 0.452995), (0.390040, 0.390264, 0.390041, 0.390271),
             (0.423431, 0.423608, 0.423436, 0.423604)), spread=(0.000214, 0.000216, 2.82e-05,
-            6.2e-06, 0.000294, 0.309, 0.000227, 0.000171)),
+            6.2e-06, 0.000294, 0.309, 0.000227, 0.000171),
+            nofma=(0.437672, 0.731014, 0.399574, 0.430681, 0.614161, 0.454555, 0.392479, 0.423053)),
         "ate_smoothed": dict(r05=0.686, cpu=0.686494, tpu=(0.329139, 0.743518, 0.293060, 0.334694,
             0.728373, 0.358130, 0.288385, 0.324024), ulp=((0.328851, 0.328853, 0.328849, 0.329133),
             (0.743513, 0.743387, 0.743616, 0.743511), (0.293099, 0.293096, 0.293078, 0.293091),
             (0.334676, 0.334676, 0.334682, 0.334699), (0.728359, 0.728281, 0.728568, 0.728419),
             (0.358137, 0.755824, 0.755809, 0.358125), (0.287988, 0.288379, 0.288000, 0.288380),
             (0.323750, 0.324035, 0.323736, 0.324040)), spread=(0.000289, 0.000131, 3.83e-05,
-            1.83e-05, 0.000196, 0.398, 0.000397, 0.000288)),
+            1.83e-05, 0.000196, 0.398, 0.000397, 0.000288),
+            nofma=(0.338104, 0.744317, 0.293510, 0.333760, 0.728882, 0.360547, 0.291764, 0.323088)),
     },
     "2": {
         "ate": dict(r05=0.382, cpu=0.38233, tpu=(0.397028, 0.379395, 0.394973, 0.357146, 0.370410,
@@ -135,35 +154,40 @@ REFERENCE = {
             (0.357148, 0.357144, 0.357147, 0.357146), (0.370411, 0.370432, 0.370410, 0.370409),
             (0.369163, 0.369184, 0.369176, 0.369162), (0.383956, 0.383955, 0.383955, 0.383955),
             (0.405719, 0.405717, 0.405718, 0.405705)), spread=(3.38e-05, 6.64e-07, 5.45e-05,
-            1.98e-06, 2.21e-05, 2.15e-05, 5.31e-07, 1.13e-05)),
+            1.98e-06, 2.21e-05, 2.15e-05, 5.31e-07, 1.13e-05),
+            nofma=(0.397012, 0.379204, 0.394913, 0.357082, 0.370372, 0.369243, 0.383998, 0.405720)),
         "scale_ratio": dict(r05=1.017, cpu=1.017082, tpu=(1.024169, 1.022322, 1.023137, 0.989828,
             1.022664, 1.023862, 1.018702, 1.015679), ulp=((1.024169, 1.024165, 1.024169, 1.024169),
             (1.022322, 1.022322, 1.022322, 1.022322), (1.023150, 1.023137, 1.023137, 1.023137),
             (0.989828, 0.989838, 0.989828, 0.989828), (1.022664, 1.022660, 1.022661, 1.022664),
             (1.023862, 1.023859, 1.023793, 1.023862), (1.018702, 1.018702, 1.018702, 1.018702),
             (1.015676, 1.015676, 1.015678, 1.015678)), spread=(3.51e-06, 1.75e-07, 1.32e-05,
-            1.07e-05, 3.86e-06, 6.91e-05, 1.75e-07, 2.72e-06)),
+            1.07e-05, 3.86e-06, 6.91e-05, 1.75e-07, 2.72e-06),
+            nofma=(1.024218, 1.022370, 1.023127, 0.989843, 1.022670, 1.023859, 1.018700, 1.015681)),
         "ate_vi_ba": dict(r05=0.418, cpu=0.355411, tpu=(0.377461, 0.360474, 0.392729, 0.365951,
             0.355009, 0.353233, 0.364051, 0.378575), ulp=((0.377461, 0.377487, 0.377460, 0.377461),
             (0.360474, 0.360473, 0.360475, 0.360474), (0.392782, 0.392728, 0.392735, 0.392729),
             (0.365953, 0.365949, 0.365951, 0.365951), (0.355010, 0.355023, 0.355009, 0.355008),
             (0.353234, 0.353246, 0.353232, 0.353233), (0.364052, 0.364051, 0.364051, 0.364051),
             (0.378575, 0.378572, 0.378575, 0.378563)), spread=(2.56e-05, 9.45e-07, 5.35e-05,
-            2.29e-06, 1.39e-05, 1.31e-05, 1.56e-06, 1.17e-05)),
+            2.29e-06, 1.39e-05, 1.31e-05, 1.56e-06, 1.17e-05),
+            nofma=(0.377475, 0.360317, 0.392678, 0.365878, 0.354946, 0.353309, 0.364096, 0.378578)),
         "scale_ratio_vi_ba": dict(r05=0.894, cpu=0.902769, tpu=(0.891454, 0.896730, 0.879752,
             0.897059, 0.897538, 0.898142, 0.898708, 0.889116), ulp=((0.891454, 0.891444, 0.891454,
             0.891453), (0.896730, 0.896730, 0.896730, 0.896730), (0.879733, 0.879752, 0.879750,
             0.879752), (0.897057, 0.897069, 0.897058, 0.897058), (0.897538, 0.897533, 0.897538,
             0.897538), (0.898142, 0.898137, 0.898142, 0.898141), (0.898707, 0.898707, 0.898707,
             0.898707), (0.889117, 0.889117, 0.889116, 0.889120)), spread=(1.01e-05, 4.38e-07,
-            1.88e-05, 1.07e-05, 5.43e-06, 5.08e-06, 7.89e-07, 3.94e-06)),
+            1.88e-05, 1.07e-05, 5.43e-06, 5.08e-06, 7.89e-07, 3.94e-06),
+            nofma=(0.891448, 0.896807, 0.879770, 0.897097, 0.897563, 0.898117, 0.898690, 0.889110)),
         "ate_open_unsupervised": dict(r05=0.791, cpu=0.790904, tpu=(0.779062, 0.780810, 0.773526,
             0.777752, 0.779491, 0.780371, 0.784450, 0.780590), ulp=((0.779062, 0.779062, 0.779063,
             0.779062), (0.780810, 0.780810, 0.780811, 0.780810), (0.773526, 0.773525, 0.773526,
             0.773526), (0.777752, 0.777752, 0.777753, 0.777752), (0.779492, 0.779491, 0.779492,
             0.779491), (0.780371, 0.780371, 0.780389, 0.780371), (0.784451, 0.784450, 0.784451,
             0.784450), (0.780590, 0.780590, 0.780590, 0.780590)), spread=(4.82e-07, 4.86e-07,
-            3.9e-07, 6.92e-07, 5.56e-07, 1.8e-05, 3.7e-07, 5.01e-07)),
+            3.9e-07, 6.92e-07, 5.56e-07, 1.8e-05, 3.7e-07, 5.01e-07),
+            nofma=(0.779063, 0.780811, 0.773527, 0.777753, 0.779518, 0.780373, 0.784451, 0.780593)),
     },
     "3": {
         "ate_plain": dict(r05=0.108, cpu=0.107582, tpu=(0.108058170, 0.108014925, 0.108176729,
@@ -172,42 +196,48 @@ REFERENCE = {
             0.108176, 0.108176, 0.108177), (0.110619, 0.110620, 0.110626, 0.110621), (0.109109,
             0.109109, 0.109109, 0.109111), (0.107348, 0.107348, 0.107350, 0.107349), (0.108021,
             0.108022, 0.108022, 0.108023), (0.107005, 0.108216, 0.108216, 0.108217)),
-            spread=(4.68e-06, 4.22e-06, 9.38e-07, 6.96e-06, 1.26e-06, 0.00032, 1.04e-06, 0.00121)),
+            spread=(4.68e-06, 4.22e-06, 9.38e-07, 6.96e-06, 1.26e-06, 0.00032, 1.04e-06, 0.00121),
+            nofma=(0.108063, 0.108015, 0.108177, 0.109521, 0.109111, 0.107667, 0.108023, 0.107006)),
         "ate_photometric": dict(r05=0.104, cpu=0.104036, tpu=(0.101317, 0.103508, 0.104930,
             0.103702, 0.101878, 0.105871, 0.111691, 0.109498), ulp=((0.106884, 0.103587, 0.105870,
             0.103483), (0.104442, 0.106602, 0.101077, 0.103518), (0.105288, 0.109603, 0.099382,
             0.111916), (0.094613, 0.101603, 0.100065, 0.102462), (0.099877, 0.101529, 0.101746,
             0.103784), (0.107912, 0.103853, 0.105338, 0.105724), (0.105180, 0.108098, 0.105509,
             0.105993), (0.104115, 0.099514, 0.105484, 0.103403)), spread=(0.00557, 0.00309,
-            0.00699, 0.00909, 0.002, 0.00204, 0.00651, 0.00998)),
+            0.00699, 0.00909, 0.002, 0.00204, 0.00651, 0.00998),
+            nofma=(0.104113, 0.101749, 0.106158, 0.102745, 0.100054, 0.101497, 0.100401, 0.100899)),
         "ate_online_ba": dict(r05=0.108, cpu=0.107583, tpu=(0.108059369, 0.108015621, 0.108177845,
             0.110626792, 0.109111007, 0.107667283, 0.108023445, 0.107006365), ulp=((0.108058,
             0.108058, 0.108064, 0.108059), (0.108019, 0.108018, 0.108019, 0.108019), (0.108176,
             0.108176, 0.108177, 0.108178), (0.109480, 0.110620, 0.110626, 0.110622), (0.109110,
             0.109111, 0.109110, 0.109111), (0.107349, 0.107666, 0.107351, 0.107352), (0.108022,
             0.108022, 0.108022, 0.108023), (0.108210, 0.108216, 0.107012, 0.108217)),
-            spread=(4.2e-06, 3.74e-06, 1.84e-06, 0.00115, 1.36e-06, 0.000318, 1.28e-06, 0.00121)),
+            spread=(4.2e-06, 3.74e-06, 1.84e-06, 0.00115, 1.36e-06, 0.000318, 1.28e-06, 0.00121),
+            nofma=(0.108064, 0.108020, 0.108178, 0.109522, 0.109111, 0.107350, 0.108023, 0.107007)),
         "ate_vi_open_loop": dict(r05=0.351, cpu=0.350952, tpu=(0.349031, 0.347262, 0.347614,
             0.349123, 0.348942, 0.347496, 0.345928, 0.347264), ulp=((0.349031, 0.349030, 0.349029,
             0.349031), (0.347261, 0.347261, 0.347259, 0.347261), (0.347615, 0.347614, 0.347614,
             0.347615), (0.349162, 0.349162, 0.349122, 0.349162), (0.348942, 0.348942, 0.348940,
             0.348942), (0.347423, 0.347422, 0.347421, 0.347422), (0.345929, 0.345928, 0.345927,
             0.345928), (0.347264, 0.348056, 0.348055, 0.348057)), spread=(2.28e-06, 3.19e-06,
-            6.22e-07, 3.91e-05, 1.65e-06, 7.5e-05, 1.04e-06, 0.000793)),
+            6.22e-07, 3.91e-05, 1.65e-06, 7.5e-05, 1.04e-06, 0.000793),
+            nofma=(0.349029, 0.347262, 0.347615, 0.348923, 0.348942, 0.347494, 0.345928, 0.347264)),
         "ate_vi_online_ba_ends": dict(r05=0.257, cpu=0.269493, tpu=(0.277292, 0.278642, 0.277958,
             0.277679, 0.277586, 0.277284, 0.277710, 0.275559), ulp=((0.277292, 0.277292, 0.277292,
             0.277294), (0.278642, 0.278643, 0.278642, 0.278642), (0.277963, 0.277961, 0.277960,
             0.277959), (0.277682, 0.277679, 0.277679, 0.277681), (0.277593, 0.277589, 0.277591,
             0.277593), (0.277285, 0.277283, 0.277286, 0.277286), (0.277712, 0.277711, 0.277709,
             0.277710), (0.275559, 0.275853, 0.275582, 0.275556)), spread=(2.02e-06, 6.9e-07,
-            5.36e-06, 2.9e-06, 7.18e-06, 2.55e-06, 1.68e-06, 0.000295)),
+            5.36e-06, 2.9e-06, 7.18e-06, 2.55e-06, 1.68e-06, 0.000295),
+            nofma=(0.277294, 0.278638, 0.277961, 0.277727, 0.277593, 0.277287, 0.277708, 0.275556)),
         "ate_vi_online_ba_marg": dict(r05=0.553, cpu=0.151465, tpu=(0.168529, 0.170519, 0.165744,
             0.170501, 0.167805, 0.167508, 0.159625, 0.166443), ulp=((0.169549, 0.175999, 0.169217,
             0.175844), (0.168905, 0.171746, 0.175829, 0.175037), (0.169026, 0.167273, 0.166914,
             0.169276), (0.177978, 0.170039, 0.171220, 0.170900), (0.171771, 0.170645, 0.169270,
             0.170558), (0.171023, 0.170720, 0.169791, 0.172301), (0.158187, 0.159578, 0.159221,
             0.159383), (0.165949, 0.164851, 0.166502, 0.169936)), spread=(0.00747, 0.00531,
-            0.00353, 0.00748, 0.00397, 0.00479, 0.00144, 0.00349)),
+            0.00353, 0.00748, 0.00397, 0.00479, 0.00144, 0.00349),
+            nofma=(0.169470, 0.169808, 0.171440, 0.169323, 0.169867, 0.168326, 0.163132, 0.165492)),
     },
     "4": {
         "ate_open_loop": dict(r05=0.177, cpu=0.176682, tpu=(0.176490, 0.175810, 0.181239, 0.169559,
@@ -216,24 +246,27 @@ REFERENCE = {
             (0.169568, 0.169559, 0.169559, 0.169568), (0.182256, 0.182255, 0.182255, 0.182255),
             (0.175755, 0.175754, 0.175766, 0.175755), (0.173299, 0.173298, 0.173363, 0.173363),
             (0.171827, 0.171826, 0.171827, 0.171827)), spread=(9.83e-07, 9.73e-07, 1.47e-06,
-            8.85e-06, 1.17e-06, 1.06e-05, 6.36e-05, 1.08e-06)),
+            8.85e-06, 1.17e-06, 1.06e-05, 6.36e-05, 1.08e-06),
+            nofma=(0.172430, 0.175809, 0.181239, 0.169559, 0.182256, 0.175767, 0.173363, 0.171824)),
         "n_loops": dict(r05=4, cpu=4, tpu=(5, 6, 6, 5, 5, 6, 7, 5), ulp=((5, 5, 5, 5), (6, 6, 6,
             6), (6, 6, 6, 6), (5, 5, 5, 5), (5, 5, 5, 5), (6, 6, 6, 6), (7, 7, 7, 7), (5, 5, 5,
-            5)), spread=(0, 0, 0, 0, 0, 0, 0, 0)),
+            5)), spread=(0, 0, 0, 0, 0, 0, 0, 0), nofma=(5, 6, 6, 5, 4, 6, 7, 5)),
         "kf_maxerr_before": dict(r05=0.267, cpu=0.266856, tpu=(0.261246, 0.257787, 0.269249,
             0.249335, 0.271671, 0.256890, 0.249500, 0.247523), ulp=((0.261246, 0.261245, 0.261245,
             0.261245), (0.257786, 0.257785, 0.257785, 0.257785), (0.269248, 0.269247, 0.269247,
             0.269247), (0.249334, 0.249333, 0.249334, 0.249334), (0.271670, 0.271669, 0.271670,
             0.271669), (0.256889, 0.256888, 0.256889, 0.256889), (0.249499, 0.249498, 0.249660,
             0.249660), (0.247522, 0.247521, 0.247522, 0.247522)), spread=(1.63e-06, 1.74e-06,
-            2.06e-06, 1.24e-06, 1.52e-06, 2.36e-06, 0.00016, 2.16e-06)),
+            2.06e-06, 1.24e-06, 1.52e-06, 2.36e-06, 0.00016, 2.16e-06),
+            nofma=(0.253180, 0.257786, 0.269248, 0.249335, 0.271670, 0.256890, 0.249661, 0.247523)),
         "kf_maxerr_after": dict(r05=0.146, cpu=0.146025, tpu=(0.121259, 0.130588, 0.125958,
             0.129742, 0.124610, 0.127868, 0.130339, 0.120635), ulp=((0.121275, 0.121181, 0.121178,
             0.121243), (0.130581, 0.130502, 0.130493, 0.130563), (0.125944, 0.125870, 0.125861,
             0.125925), (0.129756, 0.129670, 0.129669, 0.129726), (0.124628, 0.124539, 0.124538,
             0.124601), (0.127853, 0.127777, 0.127769, 0.127840), (0.130209, 0.130318, 0.130239,
             0.130314), (0.120639, 0.120553, 0.120554, 0.120641)), spread=(8.06e-05, 9.49e-05,
-            9.7e-05, 7.33e-05, 7.19e-05, 9.88e-05, 0.00013, 8.16e-05)),
+            9.7e-05, 7.33e-05, 7.19e-05, 9.88e-05, 0.00013, 8.16e-05),
+            nofma=(0.121600, 0.130733, 0.126094, 0.129810, 0.142602, 0.128025, 0.130606, 0.120623)),
     },
     "5": {
         "ate_mean": dict(r05=0.098, cpu=0.09773, tpu=(0.096733, 0.096066, 0.097200, 0.097652,
@@ -242,34 +275,36 @@ REFERENCE = {
             (0.098132, 0.097605, 0.097607, 0.098132), (0.096340, 0.096299, 0.096300, 0.096300),
             (0.096698, 0.096698, 0.096698, 0.096698), (0.095721, 0.095712, 0.095712, 0.095721),
             (0.097385, 0.097385, 0.097385, 0.097385)), spread=(1.13e-07, 1.59e-07, 1.24e-07,
-            0.00048, 4.03e-05, 1.31e-07, 8.85e-06, 2.36e-05)),
+            0.00048, 4.03e-05, 1.31e-07, 8.85e-06, 2.36e-05),
+            nofma=(0.096731, 0.096066, 0.097200, 0.098172, 0.096300, 0.096698, 0.095721, 0.097390)),
         "ate_max": dict(r05=0.105, cpu=0.105328, tpu=(0.111553, 0.107697, 0.108764, 0.104736,
             0.105587, 0.110213, 0.105147, 0.108346), ulp=((0.111553, 0.111553, 0.111553, 0.111553),
             (0.107697, 0.107696, 0.107696, 0.107696), (0.108763, 0.108763, 0.108763, 0.108763),
             (0.108884, 0.104736, 0.104736, 0.108884), (0.105587, 0.105587, 0.105587, 0.105587),
             (0.110213, 0.110213, 0.110212, 0.110213), (0.105218, 0.105147, 0.105147, 0.105218),
             (0.108346, 0.108345, 0.108345, 0.108345)), spread=(2.98e-07, 4.3e-07, 4.04e-07,
-            0.00415, 3.72e-07, 4.45e-07, 7.05e-05, 3.37e-07)),
+            0.00415, 3.72e-07, 4.45e-07, 7.05e-05, 3.37e-07),
+            nofma=(0.111553, 0.107697, 0.108764, 0.108885, 0.105588, 0.110213, 0.105218, 0.108190)),
     },
     "6": {
         "ate_full": dict(r05=0.981, head_pr10=0.8036, cpu=0.803273, tpu=(0.816637, 0.786736,
             0.779927, 1.068147, 0.829018, 0.795419, 0.782069, 0.976065), ulp=((0.816641, 0.816346,
-            0.816623, 0.816354),), spread=(0.00029,)),
+            0.816623, 0.816354),), spread=(0.00029,), nofma=(0.814843,)),
         "ate_f1_100": dict(r05=0.597, head_pr10=0.5326, cpu=0.532389, tpu=(0.500323, 0.500284,
             0.489204, 0.735522, 0.512709, 0.493132, 0.523208, 0.664692), ulp=((0.500325, 0.500101,
-            0.500324, 0.500096),), spread=(0.000228,)),
+            0.500324, 0.500096),), spread=(0.000228,), nofma=(0.500508,)),
         "ate_f100_300": dict(r05=0.984, head_pr10=0.8155, cpu=0.815331, tpu=(0.861850, 0.844683,
             0.832514, 1.117662, 0.871032, 0.845360, 0.850527, 1.019193), ulp=((0.861852, 0.861552,
-            0.861849, 0.861550),), spread=(0.0003,)),
+            0.861849, 0.861550),), spread=(0.0003,), nofma=(0.862817,)),
         "ate_f300_500": dict(r05=1.123, head_pr10=0.899, cpu=0.89858, tpu=(0.894403, 0.842141,
             0.841712, 1.154835, 0.910358, 0.863754, 0.817984, 1.059691), ulp=((0.894411, 0.894090,
-            0.894373, 0.894110),), spread=(0.000313,)),
+            0.894373, 0.894110),), spread=(0.000313,), nofma=(0.889296,)),
         "kf_maxerr_before": dict(r05=1.616, head_pr10=1.4077, cpu=1.407679, tpu=(1.414557,
             1.419193, 1.362035, 1.703743, 1.428348, 1.389567, 1.412506, 1.593286), ulp=((1.414561,
-            1.414207, 1.414557, 1.414212),), spread=(0.00035,)),
+            1.414207, 1.414557, 1.414212),), spread=(0.00035,), nofma=(1.414864,)),
         "kf_maxerr_after": dict(r05=1.299, head_pr10=1.4777, cpu=1.47785, tpu=(0.765029, 0.769157,
             0.760164, 0.863896, 0.762425, 0.777383, 0.746701, 0.794466), ulp=((0.765734, 0.766063,
-            0.766084, 0.765438),), spread=(0.00105,)),
+            0.766084, 0.765438),), spread=(0.00105,), nofma=(0.766111,)),
     },
 }
 
@@ -281,7 +316,7 @@ REFERENCE = {
 PAIRED_FACTOR = 2.0
 PAIRED_FLOOR = 1e-4
 # What a runner returns for the tests, not printed in a row.
-DETAIL = ("poses", "loops", "archive")
+DETAIL = ("poses", "smoothed", "loops", "archive")
 # Counts, held within the reference's range (not widened).
 DISCRETE = {"n_loops"}
 # GT-scale online BA (the vision-only window, `ends` gauge) is neutral by
@@ -447,7 +482,8 @@ def run_batch(seqs, device, seed, cfg=None, noises=None) -> dict:
 
 def run_cold(seq, device, seed) -> dict:
     """Config 2c: cold start (v0 = 0) under the default GT-free mode, the
-    window refined on keyframes, the live and bootstrap-smoothed ATE."""
+    window refined on keyframes, the live and bootstrap-smoothed ATE (and
+    trajectories)."""
     from vislam_tpu_torch.engine import VIOEngine
     from vislam_tpu_torch.engine.refine import refine_window
     from vislam_tpu_torch.eval import ate_rmse, smooth_bootstrap_prefix
@@ -476,7 +512,8 @@ def run_cold(seq, device, seed) -> dict:
     return {"ate_live": ate_rmse(poses, gt, align=False),
             "ate_smoothed": ate_rmse(sm, gt, align=False),
             "n_applies": int(applies[-1]) if applies else 0,
-            "aligned": bool(state.vi_aligned), "fps": (n - 1) / wall}
+            "aligned": bool(state.vi_aligned), "fps": (n - 1) / wall, "poses": poses,
+            "smoothed": sm}
 
 
 def _leaves(tree):
@@ -565,50 +602,78 @@ def median_reference(ref: dict) -> tuple:
     return med, iqr, False
 
 
+def reference_range(ref: dict) -> tuple:
+    """(lo, hi) of the reference's runs over its seeds: draw 0's values and
+    the no-FMA compile's, one more run of the reference at each seed."""
+    values = list(ref["tpu"]) + list(ref.get("nofma", ()))
+    return min(values), max(values)
+
+
+def within_range(metric: str, got: list, ref: dict) -> bool:
+    """The port's runs within the reference's range (`reference_range`),
+    widened by draw 0's IQR where the metric is continuous and the port
+    has more than one run."""
+    lo, hi = reference_range(ref)
+    widen = 0.0 if metric in DISCRETE or len(got) == 1 else _quartiles(ref["tpu"])[1]
+    return bool(min(got) >= lo - widen and max(got) <= hi + widen)
+
+
 def hold(name: str, runs: list) -> list:
     """(metric, line, ok) for each metric of the reference table: the port's
     runs against the reference's seeds; ok is None where not held (one
     run). The medians within the IQR (`median_reference`) and the port's
-    range within the reference's widened by its IQR; a count (DISCRETE)
-    within the reference's range; each run paired with the reference's run
-    at its seed (`paired`); config 3's online BA at GT scale to its plain
-    run (`hold_neutral`)."""
+    range within the reference's (`reference_range`) widened by draw 0's
+    IQR; a count (DISCRETE) within the reference's range; each run paired
+    with the reference's runs at its seed (`paired`); config 3's online BA
+    at GT scale to its plain run (`hold_neutral`)."""
     out = []
     for metric, ref in REFERENCE.get(name, {}).items():
         got = [r[metric] for r in runs if metric in r]
         if not got:
             continue
         r_med, r_iqr = _quartiles(ref["tpu"])
-        r_lo, r_hi = min(ref["tpu"]), max(ref["tpu"])
+        r_lo, r_hi = reference_range(ref)
         p_med, _ = _quartiles(got)
         cpu = ", ".join(f"{k} {ref[k]}" for k in ("cpu", "r05", "head_pr10") if k in ref)
         line = (f"  {metric}: port median {p_med:.4f} [{min(got):.4f}, {max(got):.4f}] over "
                 f"{len(got)} seed{'s' if len(got) > 1 else ''} | reference, TPU branch, "
-                f"median {r_med:.4f} [{r_lo:.4f}, {r_hi:.4f}] over {len(ref['tpu'])} seeds, "
-                f"IQR {r_iqr:.4f}")
+                f"median {r_med:.4f} over {len(ref['tpu'])} seeds, IQR {r_iqr:.4f}, range "
+                f"[{r_lo:.4f}, {r_hi:.4f}] with the no-FMA runs")
         if metric in DISCRETE:
-            ok = bool(min(got) >= r_lo and max(got) <= r_hi)
+            ok = within_range(metric, got, ref)
             line += (f" | each run held within the reference's range: "
                      f"{'within' if ok else 'OUTSIDE'}")
         elif len(got) > 1:
             h_med, h_iqr, ens = median_reference(ref)
-            ok = bool(abs(p_med - h_med) <= h_iqr and min(got) >= r_lo - r_iqr
-                      and max(got) <= r_hi + r_iqr)
+            ok = bool(abs(p_med - h_med) <= h_iqr) and within_range(metric, got, ref)
             line += (f" | medians {abs(p_med - h_med):.4f} apart (held <= the IQR"
                      + (f"; the ensemble's: median {h_med:.4f}, IQR {h_iqr:.4f}, since a "
                         f"one-ulp seed set of the reference fails draw 0's" if ens else "")
                      + f"), the port's range held within [{r_lo - r_iqr:.4f}, "
                        f"{r_hi + r_iqr:.4f}]: {'within' if ok else 'OUTSIDE'}")
         else:
-            ok = None
-            line += (f" | no median hold (one run; "
-                     f"{'inside' if r_lo <= got[0] <= r_hi else 'outside'} the reference's "
-                     f"range)")
+            ok, inside = None, within_range(metric, got, ref)
+            line += (f" | no median hold (one run; {'inside' if inside else 'outside'} the "
+                     f"reference's range)")
         out.append((metric, line + f" | reference, CPU branch: {cpu}", ok))
         out.append(paired(metric, got, ref))
     if name in NEUTRAL:
         out.append(hold_neutral(name, runs))
     return out
+
+
+def draw0_verdict(metric: str, got: list, ref: dict) -> str:
+    """The verdict on a metric by draw 0 alone, the rule before the no-FMA
+    compile was measured (its range, and its pairing at each seed; the
+    count within the five runs at the seed): printed beside this rule's,
+    so the change shows; it decides nothing."""
+    only = {k: v for k, v in ref.items() if k != "nofma"}
+    ranged = within_range(metric, got, only)
+    by_seed = paired(metric, got, only)[2]
+    return (f"  {metric} by draw 0 alone (the rule before the no-FMA runs): range "
+            f"{'within' if ranged else 'OUTSIDE'}"
+            f"{' (one run: not held)' if len(got) == 1 and metric not in DISCRETE else ''}, "
+            f"paired {'within' if by_seed else 'OUTSIDE'}")
 
 
 def paired_bound(spread: float) -> float:
@@ -620,33 +685,44 @@ def paired_bound(spread: float) -> float:
 def paired(metric: str, got: list, ref: dict) -> tuple:
     """(metric/paired, line, ok): the port's run at seed d against the
     reference's at seed d (the same RANSAC draws), at each seed the port
-    runs: |port_d - reference_d| within `paired_bound` of the reference's
-    one-ulp spread at d; a count (DISCRETE) within the range of the
-    reference's five runs at d (draw 0 and the four one-ulp draws). Seeds
-    past the reference's ensemble (--seeds) are not paired."""
+    runs: |port_d - c| within `paired_bound` of the reference's one-ulp
+    spread at d for c draw 0 or the no-FMA run at d (where `ref` has
+    "nofma"); a count (DISCRETE) within the range of the reference's runs at
+    d (draw 0, the four one-ulp draws and the no-FMA run). Seeds past the
+    reference's ensemble (--seeds) are not paired."""
     got = got[:len(ref["spread"])]
-    parts, ok, worst = [], True, (-1.0, 0)
+    nofma = ref.get("nofma", ())
+    parts, ok, worst, by = [], True, (-1.0, 0), []
     for d, g in enumerate(got):
-        r0 = ref["tpu"][d]
+        centres = {"draw 0": ref["tpu"][d]}
+        if d < len(nofma):
+            centres["no-FMA"] = nofma[d]
         if metric in DISCRETE:
-            runs = (r0, *ref["ulp"][d])
+            runs = (*centres.values(), *ref["ulp"][d])
             good = min(runs) <= g <= max(runs)
             parts.append(f"{g} in [{min(runs)}, {max(runs)}]")
         else:
-            dist, bound = abs(g - r0), paired_bound(ref["spread"][d])
-            good = dist <= bound
-            parts.append(f"{dist:.2e}/{bound:.2e}")
-            worst = max(worst, (dist / bound, d))
+            bound = paired_bound(ref["spread"][d])
+            dist = {k: abs(g - c) for k, c in centres.items()}
+            held = [k for k, x in dist.items() if x <= bound]
+            good = bool(held)
+            parts.append("/".join(f"{x:.2e}" for x in dist.values()) + f" <= {bound:.2e}: "
+                         + (" and ".join(held) if held else "neither"))
+            by.append(" and ".join(held) if held else "neither")
+            worst = max(worst, (min(dist.values()) / bound, d))
         ok = ok and good
     line = f"  {metric} paired by seed, "
     if metric in DISCRETE:
-        line += "each run within the reference's five at its seed: " + ", ".join(parts)
+        line += (f"each run within the reference's {'six' if nofma else 'five'} at its seed: "
+                 + ", ".join(parts))
     else:
         d = worst[1]
-        line += (f"|port_d - reference_d| / held bound max(2 x one-ulp spread, 1e-4): "
-                 f"{', '.join(parts)} over seeds 0-{len(got) - 1}; the largest ratio at seed "
-                 f"{d} (port {got[d]:.6f}, reference {ref['tpu'][d]:.6f}, spread "
-                 f"{ref['spread'][d]:.2e})")
+        line += (f"|port_d - reference_d| {'/ |port_d - nofma_d| ' if nofma else ''}against "
+                 f"the held bound max(2 x one-ulp spread, 1e-4), and the compile that holds: "
+                 f"{'; '.join(parts)} over seeds 0-{len(got) - 1}; the largest ratio at seed "
+                 f"{d} (port {got[d]:.6f}, reference {ref['tpu'][d]:.6f}"
+                 + (f", no-FMA {nofma[d]:.6f}" if d < len(nofma) else "")
+                 + f", spread {ref['spread'][d]:.2e})")
     return f"{metric}/paired", line + f": {'within' if ok else 'OUTSIDE'}", bool(ok)
 
 
@@ -716,6 +792,10 @@ def main(argv=None) -> int:
             print(line, flush=True)
             if held and ok is False:
                 failed.append(f"{name}/{metric}")
+        for metric, ref in REFERENCE.get(name, {}).items():
+            got = [r[metric] for r in rows[name] if metric in r]
+            if got:
+                print(draw0_verdict(metric, got, ref), flush=True)
     for r in rows.get("6", []):
         print(f"config 6 loop correction: keyframe max error {r.get('kf_maxerr_before', 0):.4f}"
               f" -> {r.get('kf_maxerr_after', 0):.4f} m with {r.get('n_loops', 0)} loops "

@@ -1,14 +1,19 @@
 """Where two runs of one EVAL config part, frame by frame: the port's card
 run against its CPU run, and its online-BA run against its plain run.
 
-    python3 scripts/torch_eval_divergence.py [--seeds 5] [--row plain|marg]
+    python3 scripts/torch_eval_divergence.py [--config 3|2|4] [--seeds 5]
+                                             [--row plain|marg|open|photometric]
                                              [--max-frames N] [--cpu] [--out FILE]
 
-Runs EVAL config 3's pinned sequence (`scripts/torch_eval_configs.py`) at
-GT scale (`--row plain`: the plain row and the online BA), or at IMU scale
-with the VI-BA under the `marg` gauge (`--row marg`: row 3b `marg`, its
-steps without the refine as the "plain" run), every run stepped in
-lockstep, for each RANSAC seed:
+Runs EVAL config 3's (or `--config 2`'s, or `--config 4`'s) pinned sequence
+(`scripts/torch_eval_configs.py`) at GT scale (`--row plain`: the plain row
+and the online BA), at IMU scale with the VI-BA under the `marg` gauge
+(`--row marg`: row 3b `marg`, its steps without the refine as the "plain"
+run), at IMU scale open loop (`--row open`: config 2's open loop, 3b's
+on config 3, with the window VI-BA under the `ends` gauge as the online-BA
+run: config 2's VI-BA row), or at GT scale with the photometric refine in
+the step as the second run in place of the online BA (`--row photometric`:
+row 3 photometric), every run stepped in lockstep, for each RANSAC seed:
 
 1. The draws. Every run draws frame n's RANSAC hypotheses under the
    reference's key fold_in(PRNGKey(seed), n) (`engine.frame_key`), on the
@@ -24,17 +29,24 @@ lockstep, for each RANSAC seed:
    arithmetic alone changes in that frame.
 3. Plain against online BA (`refine_window` on each keyframe: the `ends`
    gauge, which config 3 holds neutral; `--row marg`: the VI-BA under the
-   `marg` gauge), on the card (as the harness runs
+   `marg` gauge; `--row open`: the VI-BA), on the card (as the harness runs
    it) and on the CPU. Per frame the same fields, and at each keyframe how
    far the refine moved the live position and the keyframe anchor, and
    how far the card's refine of the CPU run's stepped state lands from
-   the CPU's refine.
+   the CPU's refine. `--row photometric` has the photometric step in
+   place of the online BA, and per frame the card's photometric step from
+   the CPU photometric run's state against the CPU's step.
 
 For each pair, prints the first frame where the positions part by more
 than 1e-6 m and the first frame where a decision differs (stages in the
 step's order: detection, matches, inliers, rescue, keyframe), then each
-run's ATE. --cpu puts the "card" runs on the CPU (a check of the script
-off the card). Imports no JAX and nothing of the JAX package.
+run's ATE. With `--config 4` (row 4: the plain step, each keyframe
+archived, then `correct_trajectory`), also the plain runs' archives: the
+first keyframe where the card's and the CPU's differ, and the loops that
+each archive closes on each device, which says whether a loop parts in
+the archive or in the correction. --cpu puts the "card" runs on the CPU
+(a check of the script off the card). Imports no JAX and nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -55,20 +67,26 @@ STAGES = ("detected", "matches", "inliers", "fallback", "keyframe")
 APART_M = 1e-6
 
 
-# The rows it follows: (SystemConfig sections replaced, at GT scale).
-ROWS = {"plain": ({}, True),
-        "marg": (dict(backend=dict(online_gauge="marg", vi_factors=True)), False)}
+# The rows it follows: (SystemConfig sections replaced in the plain runs,
+# in the second runs, at GT scale, whether the second runs refine the
+# window on each keyframe: the online BA).
+_MARG = dict(backend=dict(online_gauge="marg", vi_factors=True))
+ROWS = {"plain": ({}, {}, True, True),
+        "marg": (_MARG, _MARG, False, True),
+        "open": ({}, dict(backend=dict(vi_factors=True)), False, True),
+        "photometric": ({}, dict(engine=dict(photometric_refine=True)), True, False)}
 
 
 class Run:
     """One run of the step over the sequence: its engine (keys from `seed`),
     state and per-frame records."""
 
-    def __init__(self, name, seq, cfg, device, seed, online_ba, gt_scale=True):
+    def __init__(self, name, seq, cfg, device, seed, online_ba, gt_scale=True, archive=False):
         from vislam_tpu_torch.engine import VIOEngine
 
         self.name, self.seq, self.seed = name, seq, seed
         self.online_ba, self.gt_scale = online_ba, gt_scale
+        self.archive = [] if archive else None
         self.eng = VIOEngine(seq["calib"], cfg, seed, device=device)
         self.state = self.eng.initialize(seq["images"][0], q_wb0=seq["gt_quat"][0],
                                          v_w0=seq["gt_vel"][0], p_w0=seq["gt_pos"][0])
@@ -82,6 +100,7 @@ class Run:
         return self.seq["images"][j], imu, dt, gt
 
     def advance(self, j):
+        from vislam_tpu_torch.backend.trajectory_opt import record_from_feat
         from vislam_tpu_torch.engine.refine import refine_window
 
         c = self.seq["calib"]
@@ -91,6 +110,9 @@ class Run:
         rec = record(res)
         if rec["keyframe"]:
             self.last_kf = j
+            if self.archive is not None:
+                self.archive.append(record_from_feat(j, self.state.kf_R_wc, self.state.kf_p_wc,
+                                                     self.state.kf_feat))
             if self.online_ba:
                 stepped = self.stepped = self.state
                 self.state = refine_window(stepped, self.eng.cfg, c.fx, c.fy, c.cx, c.cy)
@@ -155,8 +177,49 @@ def parted(ra, rb) -> dict:
             "stages": stages, "max_dp": dmax}
 
 
-def compare(seq, device, seed, n, log, row="plain") -> dict:
-    """The three comparisons at one seed of `row` (`ROWS`); returns what it
+def archive_loops(seq, runs, device, log) -> dict:
+    """Row 4's archives of the card's and the CPU's plain runs: the first
+    keyframe where they differ, then `correct_trajectory` of each archive
+    on each device (the reference harness's settings), its loops and the
+    keyframes' largest error before and after."""
+    from torch_eval_configs import _correct
+
+    card, cpu = runs["card_plain"].archive, runs["cpu_plain"].archive
+    first = None
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        dp = float(np.abs(a.p_wc - b.p_wc).max())
+        dR = float(np.abs(a.R_wc - b.R_wc).max())
+        same_kp = np.array_equal(a.kp_mask, b.kp_mask)
+        duv = float(np.abs(a.uv - b.uv)[a.kp_mask & b.kp_mask].max(initial=0.0))
+        if a.frame_index != b.frame_index or dp > APART_M or not same_kp or duv > 0.01:
+            first = {"keyframe": i, "frame": (a.frame_index, b.frame_index), "dp": dp,
+                     "dR": dR, "kp_mask_equal": same_kp, "duv": duv}
+            break
+    log(f"archives: card {len(card)} keyframes, CPU {len(cpu)}; first keyframe apart "
+        f"(frame index, |dp| > {APART_M:.0e} m, keypoint set, |duv| > 0.01 px): "
+        + ("none" if first is None else
+           f"#{first['keyframe']} at frames {first['frame']}: |dp| {first['dp']:.3e} m, |dR| "
+           f"{first['dR']:.3e}, keypoint sets equal {first['kp_mask_equal']}, |duv| "
+           f"{first['duv']:.3e} px"))
+    out = {"first_apart": first, "correct": {}}
+    for label, archive in (("card archive", card), ("CPU archive", cpu)):
+        for dev in dict.fromkeys((device.type, "cpu")):
+            r = _correct(seq, archive, dev)
+            key = f"{label} corrected on {dev}"
+            if not r:
+                log(f"{key}: not corrected ({len(archive)} keyframes, the harness's least "
+                    f"is 11)")
+                continue
+            out["correct"][key] = {k: r[k] for k in ("loops", "kf_maxerr_before",
+                                                     "kf_maxerr_after")}
+            log(f"{key}: {len(r['loops'])} loops {r['loops']}; keyframe error "
+                f"{r['kf_maxerr_before']:.6f} -> {r['kf_maxerr_after']:.6f} m")
+    return out
+
+
+def compare(seq, device, seed, n, log, row="plain", archive=False) -> dict:
+    """The three comparisons at one seed of `row` (`ROWS`), and with
+    `archive` row 4's archives and loops (`archive_loops`); returns what it
     printed."""
     import torch
 
@@ -169,8 +232,9 @@ def compare(seq, device, seed, n, log, row="plain") -> dict:
     from vislam_tpu_torch.utils import prng
     from torch_eval_configs import _with
 
-    sections, gt_scale = ROWS[row]
-    cfg = _with(**sections)
+    sections, ba_sections, gt_scale, refine = ROWS[row]
+    second = "online BA" if refine else row
+    cfg, ba_cfg = _with(**sections), _with(**ba_sections)
     H, M = cfg.backend.ransac_hyps, cfg.frontend.max_keypoints
     first = [draw_categorical(FrameKey(prng.key_tensor(prng.prng_key(seed), d),
                                        torch.zeros((), dtype=torch.int32, device=d)),
@@ -180,13 +244,14 @@ def compare(seq, device, seed, n, log, row="plain") -> dict:
         f"index for index: {torch.equal(*first)}; first indices {first[0][0, :4].tolist()}")
 
     runs = {
-        "card_plain": Run("card plain", seq, cfg, device, seed, False, gt_scale),
-        "cpu_plain": Run("CPU plain", seq, cfg, "cpu", seed, False, gt_scale),
-        "card_ba": Run("card online BA", seq, cfg, device, seed, True, gt_scale),
-        "cpu_ba": Run("CPU online BA", seq, cfg, "cpu", seed, True, gt_scale),
+        "card_plain": Run("card plain", seq, cfg, device, seed, False, gt_scale, archive),
+        "cpu_plain": Run("CPU plain", seq, cfg, "cpu", seed, False, gt_scale, archive),
+        "card_ba": Run(f"card {second}", seq, ba_cfg, device, seed, refine, gt_scale),
+        "cpu_ba": Run(f"CPU {second}", seq, ba_cfg, "cpu", seed, refine, gt_scale),
     }
     forced = []
     card_eng = VIOEngine(seq["calib"], cfg, seed, device=device)
+    card_second = None if refine else VIOEngine(seq["calib"], ba_cfg, seed, device=device)
     t0 = time.perf_counter()
     for j in range(1, n):
         taken = {key: r.advance(j) for key, r in runs.items()}
@@ -205,10 +270,19 @@ def compare(seq, device, seed, n, log, row="plain") -> dict:
         f.update(detected=(n_card, n_cpu), keypoints_apart=apart, keypoint_shift=shift)
         runs["card_plain"].records[-1]["detected"] = (n_card, apart)
         runs["cpu_plain"].records[-1]["detected"] = (n_cpu, 0)
-        if runs["cpu_ba"].records[-1]["keyframe"]:
+        if card_second is not None:
+            # The second row's step (no refine) on the card from its CPU
+            # run's state, on that run's inputs and frame key.
+            cpu_before, inputs = taken["cpu_ba"]
+            card_second.set_step_counter(j - 1)
+            _, res = card_second.step(tree_to(cpu_before, card_eng.device), *inputs)
+            c = runs["cpu_ba"].records[-1]
+            f.update(second_dp_from_cpu_state=_max_abs(res.p_wc, torch.as_tensor(c["p_step"])),
+                     second_stages=[s for s in STAGES[1:] if record(res)[s] != c[s]])
+        elif runs["cpu_ba"].records[-1]["keyframe"]:
             # The card's refine of the CPU online-BA run's stepped state.
             ba = runs["cpu_ba"]
-            refined = refine_window(tree_to(ba.stepped, card_eng.device), card_eng.cfg,
+            refined = refine_window(tree_to(ba.stepped, card_eng.device), ba.eng.cfg,
                                     seq["calib"].fx, seq["calib"].fy, seq["calib"].cx,
                                     seq["calib"].cy)
             f.update(refine_dp_from_cpu_state=_max_abs(refined.p_wc, ba.state.p_wc),
@@ -226,15 +300,21 @@ def compare(seq, device, seed, n, log, row="plain") -> dict:
                 + (f"; card refine from the CPU online BA's state: |dp| "
                    f"{f['refine_dp_from_cpu_state']:.2e} m, keyframes' |dp| "
                    f"{f['refine_dkf_from_cpu_state']:.2e} m"
-                   if "refine_dp_from_cpu_state" in f else ""))
+                   if "refine_dp_from_cpu_state" in f else "")
+                + (f"; card {second} step from its CPU state: |dp| "
+                   f"{f['second_dp_from_cpu_state']:.2e} m"
+                   + (f", differs in {f['second_stages']}" if f["second_stages"] else "")
+                   if "second_dp_from_cpu_state" in f else ""))
         if (f["keypoints_apart"] or f["stages"] or f["dp_from_cpu_state"] > APART_M
-                or f.get("refine_dkf_from_cpu_state", 0.0) > APART_M):
+                or f.get("refine_dkf_from_cpu_state", 0.0) > APART_M
+                or f.get("second_dp_from_cpu_state", 0.0) > APART_M
+                or f.get("second_stages")):
             log(line)
         out["frames"].append({k: v for k, v in f.items() if k != "p_step"})
     pairs = {"card vs CPU, plain": ("card_plain", "cpu_plain"),
-             "online BA vs plain, card": ("card_ba", "card_plain"),
-             "online BA vs plain, CPU": ("cpu_ba", "cpu_plain"),
-             "card vs CPU, online BA": ("card_ba", "cpu_ba")}
+             f"{second} vs plain, card": ("card_ba", "card_plain"),
+             f"{second} vs plain, CPU": ("cpu_ba", "cpu_plain"),
+             f"card vs CPU, {second}": ("card_ba", "cpu_ba")}
     for label, (a, b) in pairs.items():
         ra, rb = runs[a].records, runs[b].records
         p = parted(ra, rb)
@@ -253,19 +333,22 @@ def compare(seq, device, seed, n, log, row="plain") -> dict:
         out["ate"][key] = ate
         moves = [(j + 1, x["refine_dp"], x["refine_dR"]) for j, x in enumerate(r.records)
                  if "refine_dp" in x]
-        refine = ""
+        moved = ""
         if moves:
-            refine = (f"; the refine moved the live position by at most "
+            moved = (f"; the refine moved the live position by at most "
                       f"{max(m[1] for m in moves):.3e} m and the anchor's rotation by "
                       f"{max(m[2] for m in moves):.3e} over {len(moves)} keyframes")
             out.setdefault("refine_moves", {})[key] = moves
         log(f"seed {seed}: {r.name}: ATE {ate:.6f} m, "
-            f"{sum(x['keyframe'] for x in r.records)} keyframes{refine}")
+            f"{sum(x['keyframe'] for x in r.records)} keyframes{moved}")
+    if archive:
+        out["archives"] = archive_loops(seq, runs, device, lambda m: log(f"seed {seed}: {m}"))
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="3", choices=["2", "3", "4"])
     ap.add_argument("--seeds", default="5", help="comma-separated RANSAC seeds")
     ap.add_argument("--row", default="plain", choices=sorted(ROWS))
     ap.add_argument("--max-frames", type=int, default=0)
@@ -286,12 +369,12 @@ def main(argv=None) -> int:
                              timeout=60).stdout.strip()
         print(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}",
               flush=True)
-    kw = dict(SEQUENCES["3"])
+    kw = dict(SEQUENCES[args.config])
     if args.max_frames:
         kw["n_frames"] = min(kw["n_frames"], args.max_frames)
     seq = make_synthetic_sequence(SyntheticConfig(**kw))
     out = [compare(seq, device, int(s), kw["n_frames"], lambda m: print(m, flush=True),
-                   args.row) for s in args.seeds.split(",")]
+                   args.row, archive=args.config == "4") for s in args.seeds.split(",")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

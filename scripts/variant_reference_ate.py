@@ -35,12 +35,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 VARIANTS = {
     # name: (sequence, frames, GT scale, frontend, backend, engine)
-    "oriented": ("seq0", 60, True, dict(oriented=True), {}, {}),
-    "gated": ("seq0", 60, True, dict(guided_gate_px=30.0), {}, {}),
+    "oriented": ("seq0", 30, True, dict(oriented=True), {}, {}),
+    "gated": ("seq0", 30, True, dict(guided_gate_px=30.0), {}, {}),
     "photometric": ("seq3", 59, True, {}, {}, dict(photometric_refine=True)),
-    "marg": ("seq3", 59, False, {},
+    "marg": ("seq3", 34, False, {},
              dict(vi_factors=True, refine_in_step=True, online_gauge="marg"), {}),
-    "oldest2": ("seq0", 30, True, {}, dict(refine_in_step=True, online_gauge="oldest2"), {}),
+    "oldest2": ("seq0", 12, True, {}, dict(refine_in_step=True, online_gauge="oldest2"), {}),
 }
 BATCH_VISION = (4, 20)   # sequences (seeds 0 to 3), frames
 

@@ -139,8 +139,13 @@ def test_resolve_sign_disparity_triangulation_match_reference():
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=1e-5)
     # Triangulation solves a 2x2 system whose determinant is the squared
     # sine of the ray angle: float32 round-off in the ray rotation is
-    # amplified by 1/det. Held at rtol 1e-4 where the rays subtend more
-    # than ~2 degrees (det > 1e-3), the regime the depth chain keeps.
+    # amplified by 1/det. The reference, as XLA's CPU compiler builds it on
+    # a host with FMA, fuses multiply-adds (det = fma(a, c, -(b b)), each
+    # 3-term dot an FMA chain); the port rounds each product, as the
+    # reference's own compile without FMA does. So where det < 1e-3 the
+    # depths differ between the reference's two compiles and the port
+    # alike. Held at rtol 1e-4 where the rays subtend more than ~2 degrees
+    # (det > 1e-3), the regime the depth chain keeps.
     ri, rj, R, mask, uv_i, t_true = _scene(5, outliers=0.0, baseline=2.0)
     rot = ri.astype(np.float64) @ R.T.astype(np.float64)
     det = 1.0 - np.sum(rot * rj, -1) ** 2

@@ -15,6 +15,13 @@ def triangulate_midpoint(rays_i, rays_j, R_ji, t_ji):
     points. R_ji (3,3), t_ji (3,) serve every ray pair, or R_ji (M,3,3),
     t_ji (M,3) give each pair its own. Returns (X_i (M,3), depth_i (M,),
     depth_j (M,), gap (M,)).
+
+    det = ac - b^2 cancels for near-parallel rays. The reference, as XLA's
+    CPU compiler builds it on a host with FMA, fuses multiply-adds there
+    (det = fma(a, c, -(b b)), each 3-term dot an FMA chain); this function
+    rounds each product, as the reference's compile without FMA
+    (`--xla_cpu_max_isa=AVX`) does. Where det < 1e-3 the depths therefore
+    differ between the reference's two compiles and this function alike.
     """
     rot = torch.einsum("...ij,...j->...i", R_ji, rays_i)
     a = torch.sum(rot * rot, -1)
